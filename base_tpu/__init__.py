@@ -1,3 +1,3 @@
-"""base-tpu: TPU-native Bayesian stellar-evolution inference (BASE-9 capabilities, rebuilt for JAX/XLA/Pallas)."""
+"""base-tpu: Bayesian stellar-evolution inference (BASE-9 capabilities, rebuilt for JAX/XLA/Pallas)."""
 
 __version__ = "0.1.0"

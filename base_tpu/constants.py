@@ -1,6 +1,6 @@
 """Parameter indexing, star status codes, and physical constants.
 
-TPU-native reimplementation of the reference's constants layer
+Reimplementation of the reference's constants layer
 [upstream: base9/constants.hpp — SURVEY.md C1].  The "9" in BASE-9: nine
 shared cluster parameters.  We keep the same enum ordering so that chain
 output columns and config files line up with the reference.

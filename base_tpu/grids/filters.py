@@ -1,6 +1,6 @@
 """Photometric filter sets and extinction coefficients.
 
-TPU-native equivalent of the reference filter tables [upstream:
+Equivalent of the reference filter tables [upstream:
 base9/Filters.hpp + absorption-coefficient tables — SURVEY.md C13].  The
 sampler carries one absorption parameter A_V; each band's extinction is
 A_X = (A_X/A_V) * A_V with the per-filter coefficient below.  Coefficient

@@ -1,6 +1,6 @@
 """Device-resident isochrone grids and EEP-aligned interpolation.
 
-TPU-native replacement for the reference MS/RGB model hierarchy
+Replacement for the reference MS/RGB model hierarchy
 [upstream: base9/MsRgbModels/*.{cpp,hpp}, base9/Isochrone.hpp — SURVEY.md
 C5].  Where the C++ walks ragged per-(FeH,Y,age) isochrone vectors with
 pointers, we rectangularize: every isochrone is padded to a common EEP
@@ -89,9 +89,8 @@ class Isochrone:
         below `min_mass` or above `agb_tip` themselves.
 
         Dense (gather-free) formulation: the E*Q secondary-mass queries
-        per proposal made searchsorted+gather the hottest op in the HMC
-        leapfrog; hat-weights + one [Q,E]@[E,B] matmul run on the MXU
-        instead (see ops.interp.hat_weight_matrix).
+        per proposal become hat-weights + one [Q,E]@[E,B] matrix product
+        instead of searchsorted+gather (see ops.interp.hat_weight_matrix).
 
         smooth=True (smoothstep weights) is the default: the C^0 hat
         lookup puts gradient kinks in the log posterior at every node
@@ -116,12 +115,8 @@ def derive_isochrone(grid: IsochroneGrid, feh, y, age) -> Isochrone:
     weights are the hat basis evaluated at the query
     (ops.interp.hat_weight_matrix — nonzero only on the bracketing two
     nodes, so this is EXACTLY the 2x2x2 corner blend), and the blend is
-    three tiny tensor contractions.  The previous corner-gather path
-    (searchsorted per axis + 8 gathers per payload) fragmented into
-    dozens of small TPU kernels and its VJP dominated the HMC leapfrog
-    once the marginal moved into the fused Pallas kernel — the r4
-    profile (benchmarks/profile_density.out) measured the table build
-    at ~75% of the full density cost."""
+    three tiny tensor contractions instead of a searchsorted per axis
+    and 8 gathers per payload."""
     wf = iops.hat_weight_matrix(grid.feh, jnp.reshape(feh, (1,)))[0]
     wy = iops.hat_weight_matrix(grid.y, jnp.reshape(y, (1,)))[0]
     wa = iops.hat_weight_matrix(grid.age, jnp.reshape(age, (1,)))[0]
@@ -131,17 +126,17 @@ def derive_isochrone(grid: IsochroneGrid, feh, y, age) -> Isochrone:
         & (age >= grid.age[0]) & (age <= grid.age[-1])
     )
     w3 = wf[:, None, None] * wy[None, :, None] * wa[None, None, :]
-    mass = jnp.tensordot(w3, grid.mass, axes=3)            # [E]
-    agb_tip = jnp.tensordot(w3, grid.agb_tip, axes=3)
+    # Full float32 (a GPU would otherwise contract in TF32, ~1e-3
+    # relative on the masses and so on every IMF weight).
+    hi = jax.lax.Precision.HIGHEST
+    mass = jnp.tensordot(w3, grid.mass, axes=3, precision=hi)   # [E]
+    agb_tip = jnp.tensordot(w3, grid.agb_tip, axes=3, precision=hi)
     # Blend mags weighted by corner validity so that a padded corner does
     # not drag a valid EEP's magnitudes toward the pad values; weight
     # normalization = sum of w*valid (1 when all corners valid).
     wv3 = w3[..., None] * grid.valid                       # [F, Y, A, E]
     wv = jnp.sum(wv3, axis=(0, 1, 2))                      # [E]
-    mags_num = jnp.einsum(
-        "fyae,fyaeb->eb", wv3, grid.mags,
-        precision=jax.lax.Precision.HIGHEST,
-    )
+    mags_num = jnp.einsum("fyae,fyaeb->eb", wv3, grid.mags, precision=hi)
     mags = mags_num / jnp.maximum(wv, 1e-12)[..., None]
     # An EEP is valid only when EVERY corner of the bracketing 2x2x2
     # cell is — including zero-weight corners at exact node hits, to

@@ -1,6 +1,6 @@
 """Model-grid loading: the Model-bundle factory.
 
-TPU-native equivalent of the reference model factory [upstream:
+Equivalent of the reference model factory [upstream:
 base9/Model.cpp makeModel(Settings) — SURVEY.md C4]: Settings names an
 MS/RGB family, a WD cooling family, a WD atmosphere model and an IFMR;
 this module materializes device-resident grids for each.

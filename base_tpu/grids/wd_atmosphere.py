@@ -1,7 +1,7 @@
 """White-dwarf model atmospheres: (log Teff, log g) -> magnitudes,
 separate DA (hydrogen) / DB (helium) tables.
 
-TPU-native replacement for the reference Bergeron atmosphere layer
+Replacement for the reference Bergeron atmosphere layer
 [upstream: base9/WdAtmosphereModels/BergeronAtmosphereModel.cpp —
 SURVEY.md C7]: both atmosphere types live in one [2, T, G, B] dense
 table; `wd_mags` bilinearly interpolates a type plane, and the

@@ -1,7 +1,7 @@
 """White-dwarf cooling-model grids: (carbonicity, WD mass, cooling age)
 -> (log Teff, log radius).
 
-TPU-native replacement for the reference WD cooling hierarchy [upstream:
+Replacement for the reference WD cooling hierarchy [upstream:
 base9/WdCoolingModels/{Wood,Montgomery,Althaus,Renedo}*.cpp — SURVEY.md
 C6].  The C++ walks per-mass cooling tracks and interpolates along each,
 then across mass (Montgomery also across carbonicity); here every family

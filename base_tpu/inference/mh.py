@@ -131,7 +131,8 @@ def run_adaptive_mh(
     )
     mean = jnp.mean(s2_pos, axis=0)
     centered = (s2_pos - mean) * free[None, :]
-    cov = centered.T @ centered / max(cfg.n_stage2 - 1, 1)
+    cov = jnp.matmul(centered.T, centered, precision=jax.lax.Precision.HIGHEST
+                     ) / max(cfg.n_stage2 - 1, 1)
     # Regularize: pinned params get a unit diagonal so Cholesky exists,
     # then their proposal contribution is masked out anyway.
     cov = cov + jnp.diag(1.0 - free) + 1e-8 * jnp.eye(P)
@@ -153,7 +154,8 @@ def run_adaptive_mh(
             k_prop, key = jax.random.split(st.key)
             st = st._replace(key=key)
             z = jax.random.normal(k_prop, (P,))
-            delta = scale_arr * (chol @ z) * free
+            delta = scale_arr * jnp.matmul(
+                chol, z, precision=jax.lax.Precision.HIGHEST) * free
             st, acc = _mh_step(logpost_fn, st, delta)
             return (st, acc_n + acc), None
 

@@ -4,10 +4,11 @@ The reference has NO resume — a crash loses the run, its only
 persistence being the append-only .res rows [SURVEY.md §5].  Here
 checkpointing is first-class: the full sampler state (chain positions,
 cached log-posts/gradients, RNG keys, adaptation state, iteration
-counter, accumulated samples) is one pytree, saved atomically with
-Orbax and restored bit-exactly, so a killed run resumes mid-sampling
-with identical results to an uninterrupted one (determinism test:
-tests/test_checkpoint.py).
+counter, accumulated samples) is one pytree, saved atomically as one
+npz file at the given path (written to a temporary name, then renamed
+over the old one) and restored bit-exactly, so a killed run resumes
+mid-sampling with identical results to an uninterrupted one
+(tests/test_checkpoint.py).
 """
 from __future__ import annotations
 
@@ -17,54 +18,40 @@ from typing import Any
 import jax
 import numpy as np
 
-try:  # Orbax is the preferred backend (async-capable, multi-host aware).
-    import orbax.checkpoint as ocp
-
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    _HAVE_ORBAX = False
-
 
 def save_checkpoint(path: str, tree: Any) -> None:
-    """Atomically save a pytree checkpoint (overwrites `path`)."""
-    path = os.path.abspath(path)
-    if _HAVE_ORBAX:
-        ckptr = ocp.StandardCheckpointer()
-        tmp = path + ".tmp"
-        if os.path.exists(tmp):
-            import shutil
-
-            shutil.rmtree(tmp)
-        ckptr.save(tmp, tree)
-        ckptr.wait_until_finished()
-        if os.path.exists(path):
-            import shutil
-
-            shutil.rmtree(path)
-        os.replace(tmp, path)
-    else:  # pragma: no cover — flat-npz fallback
-        leaves, treedef = jax.tree_util.tree_flatten(tree)
-        np.savez(
-            path + ".npz",
-            __treedef__=np.frombuffer(
-                repr(treedef).encode(), dtype=np.uint8
-            ),
-            **{f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves)},
-        )
+    """Atomically save a pytree checkpoint to `path` (overwrites)."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    final = os.path.abspath(path)
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, final)
 
 
 def restore_checkpoint(path: str, like: Any) -> Any:
     """Restore a checkpoint into the structure of `like` (a pytree with
     the right shapes/dtypes, e.g. the freshly-initialized state)."""
-    path = os.path.abspath(path)
-    if _HAVE_ORBAX:
-        ckptr = ocp.StandardCheckpointer()
-        return ckptr.restore(path, target=like)
-    z = np.load(path + ".npz")  # pragma: no cover
     leaves, treedef = jax.tree_util.tree_flatten(like)
-    new_leaves = [z[f"leaf_{i}"] for i in range(len(leaves))]
-    return jax.tree_util.tree_unflatten(treedef, new_leaves)
+    with np.load(os.path.abspath(path)) as z:
+        if len(z.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint {path} holds {len(z.files)} arrays, "
+                f"expected {len(leaves)}"
+            )
+        new = []
+        for i, ref in enumerate(leaves):
+            x = z[f"leaf_{i}"]
+            if x.shape != np.shape(ref):
+                raise ValueError(
+                    f"checkpoint {path}: leaf {i} has shape {x.shape}, "
+                    f"expected {np.shape(ref)}"
+                )
+            new.append(x.astype(np.asarray(ref).dtype, copy=False))
+    return jax.tree_util.tree_unflatten(treedef, new)
 
 
 def checkpoint_exists(path: str) -> bool:
-    return os.path.exists(path) or os.path.exists(path + ".npz")
+    return os.path.isfile(path)

@@ -1,6 +1,6 @@
 """Typed run configuration: YAML file + dotted CLI overrides.
 
-TPU-native equivalent of the reference Settings layer [upstream:
+Equivalent of the reference Settings layer [upstream:
 base9/Settings.{cpp,hpp} + conf/base9.yaml — SURVEY.md C12]: one config
 document shared by every tool, with per-tool sections.  Key names follow
 the reference YAML where practical (photFile, modelDirectory, msRgbModel,
@@ -16,9 +16,9 @@ import dataclasses
 from typing import Any
 
 import numpy as np
-import yaml
 
 from base_tpu import constants as C
+from base_tpu.io import miniyaml
 
 
 @dataclasses.dataclass
@@ -129,19 +129,12 @@ class McmcSettings:
     warmup: int = 500
     lMax: int = 24
     targetAccept: float = 0.8
-    # Full-covariance metric (HMC and NUTS).  On by default since r3:
-    # the age-FeH-modulus degeneracy ridge defeats a diagonal metric
-    # (6x ESS/s on the r3 TPU sweep, BASELINE.md) and the dense path is
-    # validated on-chip.
+    # Full-covariance metric (HMC and NUTS).  On by default: the
+    # age-FeH-modulus degeneracy ridge defeats a diagonal metric.
     denseMass: bool = True
     # quadrature
     nMassRatio: int = 16
     noBinaries: bool = False
-    # Fused marginal-likelihood kernel (ops.pallas_marglik).
-    # "auto" (default) = on when the active JAX backend is TPU — CLI
-    # users on the chip get the production kernel path without knowing
-    # the knob; "true"/"false" force it.
-    usePallas: str = "auto"
     # Quadrature refinement: insert (upsample - 1) exact piecewise-linear
     # nodes per EEP segment before marginalizing (posterior.SinglePopModel
     # .upsample); the secondary lookup stays on the BASE node set so this
@@ -159,7 +152,7 @@ class McmcSettings:
     # spacing.  At very large S the statistical error drops BELOW the
     # upsampled piecewise-linear wiggle scale and HMC chains trap in
     # quadrature kinks (measured at 10k stars / upsample=4: R-hat ~460
-    # with the floor off — benchmarks/longaxis_10k_converged.py);
+    # with the floor off — ROADMAP.md, item 2.2);
     # ~0.01 mag restores clean mixing at survey-realistic budgets.
     # 0 disables (fine through ~1k stars at upsample=4).
     sigmaModel: float = 0.0
@@ -278,7 +271,7 @@ def load_settings(
     s = Settings()
     if yaml_path:
         with open(yaml_path) as f:
-            doc = yaml.safe_load(f) or {}
+            doc = miniyaml.loads(f.read()) or {}
         _merge_dict(s, doc)
     for ov in overrides or []:
         key, _, val = ov.partition("=")
@@ -287,27 +280,5 @@ def load_settings(
 
 
 def to_yaml(s: Settings) -> str:
-    return yaml.safe_dump(dataclasses.asdict(s), sort_keys=False)
+    return miniyaml.dumps(dataclasses.asdict(s))
 
-
-def resolve_use_pallas(value) -> bool:
-    """Resolve mcmc.usePallas: "auto" -> True iff the active JAX backend
-    is TPU (the kernel's interpret-mode fallback is slower than the jnp
-    path on CPU); explicit booleans/strings pass through."""
-    if isinstance(value, bool):
-        return value
-    v = str(value).strip().lower()
-    if v == "auto":
-        import jax
-
-        return jax.default_backend() == "tpu"
-    if v in ("1", "true", "yes", "on"):
-        return True
-    if v in ("0", "false", "no", "off"):
-        return False
-    # A typo ('ture', 'enable') must not silently select the slow path —
-    # mirror HMCConfig.__post_init__'s loud validation.
-    raise ValueError(
-        f"mcmc.usePallas: unrecognized value {value!r} "
-        f"(expected true/false/auto)"
-    )

@@ -1,6 +1,6 @@
 """Per-star conditional posteriors given cluster-parameter draws.
 
-TPU-native rebuild of the post-processing samplers [upstream: sampleMass/
+Rebuild of the post-processing samplers [upstream: sampleMass/
 and sampleWDMass/ — SURVEY.md E5, E6, §3.4]: the main sampler
 marginalizes per-star masses out; these recover p(mass | theta_t, data)
 for each posterior draw theta_t.  The reference runs an MH loop per

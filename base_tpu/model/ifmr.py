@@ -1,6 +1,6 @@
 """Initial-final mass relations (ZAMS mass -> WD mass).
 
-TPU-native equivalent of the reference IFMR component [upstream:
+Equivalent of the reference IFMR component [upstream:
 base9/IFMR.cpp intlFinalMassReln — SURVEY.md C8]: fixed published
 relations plus the *tunable* linear/quadratic whose coefficients are
 cluster parameters 7-9 (the IFMR science case, BASELINE.json:9).  All

@@ -1,6 +1,6 @@
 """Marginalized per-star photometric likelihood — the hot path.
 
-TPU-native redesign of the reference inner loop [upstream: base9/marg.cpp
+Dense, vectorised redesign of the reference inner loop [upstream: base9/marg.cpp
 margEvolveWithBinary + base9/densities.cpp logLikelihood — SURVEY.md C10,
 §3.2].  The reference loops stars x EEPs x secondary-masses x bands with
 CPU threads and sums exp(logPost) node contributions; here the same
@@ -18,8 +18,7 @@ integral is computed **segment-exactly** as one dense computation:
    difference).  The node-sum quadrature of the reference aliases badly
    when EEP spacing in magnitude exceeds sigma_obs; the segment form is
    EXACT for single stars on the piecewise-linear model, at the same
-   O(S*T*B) cost (alpha, beta, gamma are three band-contractions that map
-   onto the MXU).
+   O(S*T*B) cost (alpha, beta, gamma are three band contractions).
 3. Mass marginalization = masked logsumexp over segments with
    IMF x dM x dm2 quadrature weights — log-space, no underflow for faint
    stars.
@@ -36,6 +35,7 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
+from base_tpu import platform
 from base_tpu.grids.isochrone import Isochrone
 from base_tpu.model import priors
 from base_tpu.model.stardata import MSStars
@@ -170,8 +170,7 @@ def build_segment_table(
 
 
 def _segment_weights(iso: Isochrone, q_grid: Array, uniform_q: bool):
-    """(logw [T], mask [T]) for the binaries segment table — shared by
-    the jnp and fused-kernel table builders."""
+    """(logw [T], mask [T]) for the binaries segment table."""
     m1 = iso.mass
     dm = m1[1:] - m1[:-1]                      # [E-1]
     m_mid = 0.5 * (m1[1:] + m1[:-1])
@@ -190,56 +189,6 @@ def _segment_weights(iso: Isochrone, q_grid: Array, uniform_q: bool):
     logw = logw_m[:, None] + logw_q                     # [E-1, Q]
     mask = jnp.broadcast_to(seg_valid[:, None], logw.shape)
     return logw.reshape(-1), mask.reshape(-1)
-
-
-_AXIS_HUGE = 1.0e30
-
-
-def build_segment_table_fused(
-    iso: Isochrone,
-    q_grid: Array,
-    modulus: Array,
-    absorption: Array,
-    abs_coefs: Array,
-    uniform_q: bool = False,
-    sec_iso: Isochrone | None = None,
-    interpret: bool = False,
-) -> SegmentTable:
-    """build_segment_table(binaries=True) with the combined-mags node
-    construction fused on-chip (ops.pallas_table) — the table half of
-    the BASELINE.json:5 fusion.  Node layout: n = e * Q + k, so the
-    segment rows are contiguous slices lo = comb[:T], hi = comb[Q:].
-    Weights/mask are the shared tiny jnp pieces (_segment_weights)."""
-    from base_tpu.ops.pallas_table import fused_combined_node_mags
-
-    if sec_iso is None:
-        sec_iso = iso
-    E = iso.mass.shape[0]
-    Q = q_grid.shape[0]
-    B = iso.mags.shape[-1]
-    dist = modulus + absorption * abs_coefs             # [B]
-    app1T = (iso.mags + dist[None, :]).T                # [B, E]
-    app1N = jnp.broadcast_to(
-        app1T[:, :, None], (B, E, Q)
-    ).reshape(B, E * Q)
-    m2 = iso.mass[:, None] * q_grid[None, :]            # [E, Q]
-    m2N = m2.reshape(1, -1)
-    litN = companion_lit_weight(m2, sec_iso.min_mass).reshape(1, -1)
-    x = sec_iso.mass_sorted
-    xl = jnp.concatenate([x[:1] - _AXIS_HUGE, x[:-1]])[:, None]
-    xr = jnp.concatenate([x[1:], x[-1:] + _AXIS_HUGE])[:, None]
-    inv_dl = 1.0 / jnp.maximum(x[:, None] - xl, 1e-30)
-    inv_dr = 1.0 / jnp.maximum(xr - x[:, None], 1e-30)
-    secT = (sec_iso.mags + dist[None, :]).T             # [B, E2]
-    comb = fused_combined_node_mags(
-        app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr,
-        interpret=interpret,
-    )                                                   # [B, E*Q]
-    T = (E - 1) * Q
-    logw, mask = _segment_weights(iso, q_grid, uniform_q)
-    return SegmentTable(
-        lo=comb[:, :T].T, hi=comb[:, Q:].T, logw=logw, mask=mask
-    )
 
 
 def _log_ndtr_diff(a: Array, b: Array) -> Array:
@@ -403,30 +352,28 @@ def mass_prior_log_norm(table: SegmentTable) -> Array:
     return masked_logsumexp(table.logw, table.mask, axis=-1)
 
 
-def ms_log_marginals(
-    stars: MSStars, table: SegmentTable, use_pallas: bool = False
-) -> Array:
-    """Per-star log marginal cluster likelihood [S]; `use_pallas` routes
-    through the fused on-chip kernel (ops.pallas_marglik), parity-tested
-    against the jnp path.  Shared by the single-pop and multiPop
-    densities so both get the kernel from one switch."""
-    if use_pallas:
-        from base_tpu.ops.pallas_marglik import fused_log_marginals
+def _fused_log_marginals(stars: MSStars, table: SegmentTable) -> Array:
+    from base_tpu.ops.pallas_marglik import fused_log_marginals
 
-        return fused_log_marginals(
-            stars.obs_mags, stars.inv_var, stars.log_norm,
-            table.lo, table.hi, table.logw,
-            table.mask.astype(jnp.float32),
-            interpret=jax.default_backend() != "tpu",
-        )
-    return ms_star_log_marginals(stars, table)
+    return fused_log_marginals(
+        stars.obs_mags, stars.inv_var, stars.log_norm,
+        table.lo, table.hi, table.logw, table.mask.astype(jnp.float32),
+    )
 
 
-def ms_total_loglik(
-    stars: MSStars, table: SegmentTable, use_pallas: bool = False
-) -> Array:
+def ms_log_marginals(stars: MSStars, table: SegmentTable) -> Array:
+    """Per-star log marginal cluster likelihood [S].  Compiled for a GPU
+    it runs the fused kernel (ops.pallas_marglik), elsewhere the jnp
+    path; both are parity-tested against each other.  Shared by the
+    single-pop, multiPop and WD densities."""
+    return platform.by_platform(
+        stars, table, gpu=_fused_log_marginals, default=ms_star_log_marginals
+    )
+
+
+def ms_total_loglik(stars: MSStars, table: SegmentTable) -> Array:
     """Total MS-star log likelihood (marginal + field mixture)."""
-    log_clust = ms_log_marginals(stars, table, use_pallas)
+    log_clust = ms_log_marginals(stars, table)
     log_clust = log_clust - mass_prior_log_norm(table)
     return field_mixture_total(stars, log_clust)
 
@@ -442,10 +389,9 @@ def gaussian_loglik_matrix(stars: MSStars, model_mags: Array) -> Array:
     Residual form: chi2[s,t] = sum_b (o[s,b] - m[t,b])^2 * w[s,b].  The
     residuals are O(sigma), so float32 is exact where it matters — the
     expanded-quadratic matmul form (see gaussian_loglik_matmul) loses
-    ~0.03 in chi2 to cancellation at o^2/sigma^2 ~ 1e6.  With B ~ 8 the
-    matmul's MXU contraction is only ~6% utilized anyway, so the VPU
-    residual form costs nothing; XLA fuses the band reduction without
-    materializing [S, T, B].
+    ~0.03 in chi2 to cancellation at o^2/sigma^2 ~ 1e6.  With B ~ 8 a
+    matrix product would be tiny anyway; XLA fuses the band reduction
+    without materializing [S, T, B].
     """
     diff = stars.obs_mags[:, None, :] - model_mags[None, :, :]  # [S,T,B]
     chi2 = jnp.sum(diff * diff * stars.inv_var[:, None, :], axis=-1)
@@ -453,15 +399,17 @@ def gaussian_loglik_matrix(stars: MSStars, model_mags: Array) -> Array:
 
 
 def gaussian_loglik_matmul(stars: MSStars, model_mags: Array, center: Array) -> Array:
-    """MXU variant for wide band sets (B >~ 64): two [S,B]x[B,T] matmuls
-    on per-band-centered magnitudes.  `center` [B] should be ~the mean
+    """Matrix-product variant for wide band sets (B >~ 64): two
+    [S,B]x[B,T] products on per-band-centered magnitudes, in full float32
+    (a TF32 product would lose the chi2 to cancellation).  `center` [B] should be ~the mean
     observed magnitude per band to limit float32 cancellation.
     """
     m = model_mags - center[None, :]
     o = stars.obs_mags - center[None, :]
     o = jnp.where(stars.inv_var > 0, o, 0.0)
-    cross = jnp.dot(o * stars.inv_var, m.T, preferred_element_type=jnp.float32)
-    quad = jnp.dot(stars.inv_var, (m * m).T, preferred_element_type=jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
+    cross = jnp.dot(o * stars.inv_var, m.T, precision=hi)
+    quad = jnp.dot(stars.inv_var, (m * m).T, precision=hi)
     c0 = jnp.sum(o * o * stars.inv_var, axis=-1)
     chi2 = c0[:, None] - 2.0 * cross + quad
     return -0.5 * chi2 + stars.log_norm[:, None]

@@ -1,7 +1,7 @@
 """Two-population (helium-spread) cluster model — the multiPopMcmc
 equivalent.
 
-TPU-native rebuild of the reference multi-pop sampler's density
+Rebuild of the reference multi-pop sampler's density
 [upstream: multiPopMcmc/MpiMcmcApplication.cpp, extended param enum
 YYA/YYB/LAMBDA — SURVEY.md E2, §3.5; Stenning et al. 2016, NGC 2808-style
 per BASELINE.json:10]: the parameter vector grows to 12 (the 9 shared
@@ -67,7 +67,6 @@ class MultiPopModel:
     uniform_q: bool = dataclasses.field(metadata=dict(static=True), default=False)
     ifmr_kind: str = dataclasses.field(metadata=dict(static=True), default="linear")
     p_db: float = dataclasses.field(metadata=dict(static=True), default=0.1)
-    use_pallas: bool = dataclasses.field(metadata=dict(static=True), default=False)
     # Quadrature refinement, same semantics as SinglePopModel.upsample.
     upsample: int = dataclasses.field(metadata=dict(static=True), default=1)
 
@@ -86,7 +85,6 @@ def make_multipop_model(
     n_mz: int = 96,
     ifmr_kind: str = "linear",
     p_db: float = 0.1,
-    use_pallas: bool = False,
     upsample: int = 1,
 ) -> MultiPopModel:
     mz_grid = None
@@ -113,7 +111,6 @@ def make_multipop_model(
         uniform_q=uniform_q,
         ifmr_kind=ifmr_kind,
         p_db=p_db,
-        use_pallas=use_pallas,
         upsample=upsample,
     )
 
@@ -156,21 +153,14 @@ def log_lik(model: MultiPopModel, params: Array) -> tuple[Array, Array]:
             from base_tpu.grids.isochrone import upsample_isochrone
 
             iso = upsample_isochrone(base_iso, model.upsample)
-        if model.use_pallas and model.binaries:
-            table = lk.build_segment_table_fused(
-                iso, model.q_grid, mod, av, model.abs_coefs,
-                uniform_q=model.uniform_q, sec_iso=base_iso,
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            table = lk.build_segment_table(
-                iso, model.q_grid, mod, av, model.abs_coefs,
-                binaries=model.binaries, uniform_q=model.uniform_q,
-                sec_iso=base_iso,
-            )
+        table = lk.build_segment_table(
+            iso, model.q_grid, mod, av, model.abs_coefs,
+            binaries=model.binaries, uniform_q=model.uniform_q,
+            sec_iso=base_iso,
+        )
         # Normalized per population BEFORE the lambda mix — each
         # population's mass-prior normalizer Z differs (its own hull).
-        lm = (lk.ms_log_marginals(model.stars, table, model.use_pallas)
+        lm = (lk.ms_log_marginals(model.stars, table)
               - lk.mass_prior_log_norm(table))
         return lm, iso.in_bounds
 
@@ -194,7 +184,7 @@ def log_lik(model: MultiPopModel, params: Array) -> tuple[Array, Array]:
             )
             return wd_mod.wd_star_log_marginals(
                 model.wd_stars, mags, valid, model.mz_grid, mod, av,
-                model.abs_coefs, model.p_db, model.use_pallas,
+                model.abs_coefs, model.p_db,
             )
 
         wd_mix = _lambda_mix(lam_c, wd_marginals(ya), wd_marginals(yb))

@@ -1,6 +1,6 @@
 """Posterior assembly: the jittable `log_post(params) -> scalar` density.
 
-This is the TPU-native analog of the reference's logPostStep [upstream:
+This is the analog of the reference's logPostStep [upstream:
 singlePopMcmc/MpiMcmcApplication.cpp — SURVEY.md §3.1]: bounds check ->
 cluster prior -> isochrone derive -> per-star marginal likelihoods ->
 field mixture -> total.  It is a pure function of (model pytree, params
@@ -53,7 +53,6 @@ class SinglePopModel:
     uniform_q: bool = dataclasses.field(metadata=dict(static=True), default=False)
     ifmr_kind: str = dataclasses.field(metadata=dict(static=True), default="linear")
     p_db: float = dataclasses.field(metadata=dict(static=True), default=0.1)
-    use_pallas: bool = dataclasses.field(metadata=dict(static=True), default=False)
     # Quadrature refinement: insert (upsample - 1) exact piecewise-linear
     # nodes per EEP segment before marginalizing, so adjacent nodes differ
     # by << sigma_obs in magnitude space (grids.isochrone.upsample_isochrone).
@@ -74,7 +73,6 @@ def make_single_pop_model(
     n_mz: int = 96,
     ifmr_kind: str = "linear",
     p_db: float = 0.1,
-    use_pallas: bool = False,
     upsample: int = 1,
 ) -> SinglePopModel:
     mz_grid = None
@@ -101,36 +99,28 @@ def make_single_pop_model(
         uniform_q=uniform_q,
         ifmr_kind=ifmr_kind,
         p_db=p_db,
-        use_pallas=use_pallas,
         upsample=upsample,
     )
 
 
-def log_lik(model: SinglePopModel, params: Array) -> tuple[Array, Array]:
-    """Total per-star log likelihood and the bounds flag, separated from
-    the prior so sharded runners can psum the star-sum across a mesh
-    axis before adding the (replicated) prior.  Returns (ll, in_bounds).
-    """
+def segment_table(model: SinglePopModel, params: Array):
+    """(segment table, isochrone) of one proposal: the MS stars' mass
+    quadrature before the per-star marginal."""
     age = params[C.Param.AGE]
     y = params[C.Param.YYY]
     feh = params[C.Param.FEH]
     mod = params[C.Param.MOD]
     av = params[C.Param.ABS]
-
-    base_iso = derive_isochrone(model.grid, feh, y, age)
-    iso = base_iso
-    if model.upsample > 1:
-        iso = upsample_isochrone(base_iso, model.upsample)
+    # Named scopes label each layer's device work in profiler traces.
+    with jax.named_scope("isochrone"):
+        base_iso = derive_isochrone(model.grid, feh, y, age)
+        iso = base_iso
+        if model.upsample > 1:
+            iso = upsample_isochrone(base_iso, model.upsample)
     # Secondary lookup stays on the BASE node set so upsample refines
     # the quadrature without changing the continuous model
     # (likelihood.combined_node_mags docstring).
-    if model.use_pallas and model.binaries:
-        table = lk.build_segment_table_fused(
-            iso, model.q_grid, mod, av, model.abs_coefs,
-            uniform_q=model.uniform_q, sec_iso=base_iso,
-            interpret=jax.default_backend() != "tpu",
-        )
-    else:
+    with jax.named_scope("segment_table"):
         table = lk.build_segment_table(
             iso,
             model.q_grid,
@@ -141,18 +131,30 @@ def log_lik(model: SinglePopModel, params: Array) -> tuple[Array, Array]:
             uniform_q=model.uniform_q,
             sec_iso=base_iso,
         )
-    ll = lk.ms_total_loglik(model.stars, table, model.use_pallas)
+    return table, iso
+
+
+def log_lik(model: SinglePopModel, params: Array) -> tuple[Array, Array]:
+    """Total per-star log likelihood and the bounds flag, separated from
+    the prior so sharded runners can psum the star-sum across a mesh
+    axis before adding the (replicated) prior.  Returns (ll, in_bounds).
+    """
+    table, iso = segment_table(model, params)
+    with jax.named_scope("marginal"):
+        ll = lk.ms_total_loglik(model.stars, table)
     if model.wd_stars is not None:
         from base_tpu.model import wd as wd_mod
 
-        mags, _, valid = wd_mod.wd_model_mags(
-            model.grid, model.wd_cooling, model.wd_atm, params,
-            model.mz_grid, model.ifmr_kind,
-        )
-        ll = ll + wd_mod.wd_total_loglik(
-            model.wd_stars, mags, valid, model.mz_grid, mod, av,
-            model.abs_coefs, model.p_db, model.use_pallas,
-        )
+        with jax.named_scope("wd_branch"):
+            mags, _, valid = wd_mod.wd_model_mags(
+                model.grid, model.wd_cooling, model.wd_atm, params,
+                model.mz_grid, model.ifmr_kind,
+            )
+            ll = ll + wd_mod.wd_total_loglik(
+                model.wd_stars, mags, valid, model.mz_grid,
+                params[C.Param.MOD], params[C.Param.ABS],
+                model.abs_coefs, model.p_db,
+            )
     return ll, iso.in_bounds
 
 

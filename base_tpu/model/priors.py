@@ -1,6 +1,6 @@
 """Prior densities: cluster-parameter priors and the stellar IMF.
 
-TPU-native equivalent of the reference's density functions [upstream:
+Equivalent of the reference's density functions [upstream:
 base9/densities.cpp logPriorClust / logPriorMass — SURVEY.md C9]:
 Gaussian priors on [Fe/H], distance modulus, absorption (and optionally
 any other parameter) with means/sigmas from config; flat-within-grid for

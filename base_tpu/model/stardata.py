@@ -1,10 +1,10 @@
-"""Per-star observation containers, precomputed for the MXU likelihood.
+"""Per-star observation containers, precomputed for the likelihood.
 
-TPU-native equivalent of the reference's Star/StellarSystem state
+Equivalent of the reference's Star/StellarSystem state
 [upstream: base9/Star.cpp, base9/StellarSystem.cpp — SURVEY.md C3], but
 organized as struct-of-arrays: the per-band Gaussian log-likelihood of S
 stars against T model points evaluates as one dense masked broadcast-
-reduce (or an MXU matmul variant for wide band sets) instead of the
+reduce (or a matrix-product variant for wide band sets) instead of the
 reference's per-star scalar loops.  Unobserved bands (sigma <= 0 in the
 .phot file) simply carry 1/s^2 = 0.
 """

@@ -1,7 +1,7 @@
 """White-dwarf branch of the likelihood: precursor-mass marginalization
 through IFMR -> cooling -> atmosphere.
 
-TPU-native rebuild of the reference WD path [upstream: WD branch of
+Rebuild of the reference WD path [upstream: WD branch of
 logPostStep in singlePopMcmc/MpiMcmcApplication.cpp + base9/Star.cpp
 wdPrecLogAge/coolingAge chain — SURVEY.md C6-C8, §3.1]: for each WD the
 per-star likelihood integrates over the unknown ZAMS (precursor) mass on
@@ -156,20 +156,18 @@ def wd_star_log_marginals(
     absorption: Array,
     abs_coefs: Array,
     p_db: float = 0.1,
-    use_pallas: bool = False,
 ) -> Array:
     """Per-WD log marginal cluster likelihood: segment-exact
     precursor-mass integral, DA/DB mixture.  [S]
 
-    Routes through the same machinery as the MS marginal (incl. the
-    fused Pallas kernel when use_pallas) via a concatenated DA+DB
-    segment table."""
+    Routes through the same machinery as the MS marginal (the fused
+    kernel on a GPU) via a concatenated DA+DB segment table."""
     from base_tpu.model import likelihood as lk
 
     table = wd_segment_table(
         mags, valid, mz_grid, modulus, absorption, abs_coefs, p_db
     )
-    out = lk.ms_log_marginals(stars, table, use_pallas)
+    out = lk.ms_log_marginals(stars, table)
     return jnp.maximum(out, NEG_INF)
 
 
@@ -216,12 +214,11 @@ def wd_total_loglik(
     absorption: Array,
     abs_coefs: Array,
     p_db: float = 0.1,
-    use_pallas: bool = False,
 ) -> Array:
     """Field-mixture total over WD stars (same mixture as the MS path)."""
     log_clust = wd_star_log_marginals(
         stars, mags, valid, mz_grid, modulus, absorption, abs_coefs,
-        p_db, use_pallas,
+        p_db,
     )
     a = stars.log_cm + log_clust
     b = stars.log_1m_cm + stars.field_logdens

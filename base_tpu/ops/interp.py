@@ -1,6 +1,6 @@
 """Regular-grid multilinear interpolation primitives.
 
-TPU-native replacement for the reference's pointer-walking 2x2x2 corner
+Replacement for the reference's pointer-walking 2x2x2 corner
 interpolation [upstream: base9/MsRgbModels/GenericMsModel.cpp — SURVEY.md
 C5].  Design notes:
 
@@ -140,12 +140,10 @@ def hat_weight_matrix(x_axis: Array, xq: Array,
                + clip((x_{e+1} - x) / (x_{e+1} - x_e), 0, 1) - 1
 
     with the axis virtually extended by +-1e30 so the first/last hats
-    saturate to 1 outside the hull (= clamping).  On TPU this replaces
+    saturate to 1 outside the hull (= clamping).  This replaces
     searchsorted (a sequential binary-search loop of batched gathers)
     and payload gathers with one [Q, E] compare/FMA block and one
-    [Q, E] @ [E, B] matmul — the per-proposal secondary-mass lookup in
-    the segment-table build was the single most expensive piece of the
-    HMC leapfrog before this (benchmarks/profile_density.py).
+    [Q, E] @ [E, B] matrix product.
 
     Differentiable in BOTH xq and x_axis (the isochrone masses are
     proposal-dependent, so gradients must flow into the axis).
@@ -181,18 +179,18 @@ def hat_weight_matrix(x_axis: Array, xq: Array,
 
 def interp1d_dense(x_axis: Array, y: Array, xq: Array,
                    smooth: bool = False) -> Array:
-    """interp1d via hat_weight_matrix: W @ y on the MXU, no gathers.
+    """interp1d via hat_weight_matrix: W @ y as a matrix product, no
+    gathers.
 
     Numerically identical to interp1d up to float32 reassociation; use
     on hot paths where xq is a large batch against a small axis.
 
-    Precision MUST be HIGHEST here: the TPU MXU's default bf16 input
-    rounding gives ~0.4% relative error on the interpolated magnitudes,
-    which is comparable to the photometric sigmas (0.01-0.1 mag) — the
-    density becomes jagged at the bf16 quantization scale and HMC
-    chains freeze (observed as the r2 bench ESS collapse, 1008 -> 32
-    effective samples at identical config).  The f32 6-pass matmul is
-    still far cheaper than the searchsorted+gather path it replaced."""
+    Precision MUST be HIGHEST here: a GPU would otherwise be free to run
+    the product in TF32, whose 10-bit mantissa gives ~1e-3 relative
+    error on the interpolated magnitudes (~0.02 mag at mag 20) —
+    comparable to the photometric sigmas (0.01-0.1 mag).  The density
+    would become jagged at that quantization scale and HMC chains
+    freeze."""
     w = hat_weight_matrix(x_axis, xq, smooth=smooth)  # [..., E]
     y2 = y.reshape(y.shape[0], -1)                 # [E, P]
     out = jnp.dot(

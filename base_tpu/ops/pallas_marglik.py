@@ -1,329 +1,219 @@
-"""Fused Pallas kernel: segment-exact marginal likelihood in one pass.
+"""Fused per-star marginal likelihood: a Pallas kernel for the GPU.
 
-This is the BASELINE.json:5 kernel — "Pallas-kernel multilinear
-interpolation fused into a vectorized per-star photometric
-log-likelihood".  The jnp path (model.likelihood.ms_star_log_marginals)
-materializes alpha/beta/gamma/terms [S, T] intermediates in HBM per
-proposal; this kernel streams segment tiles through VMEM, keeping a
-running (max, sum) accumulator per star, so HBM traffic drops to reading
-the [T, B] table + [S, B] photometry once per call, regardless of T.
+Computes model.likelihood.ms_star_log_marginals in one pass through the
+Triton route of Pallas.  The plain jnp path materialises the alpha,
+beta, gamma and terms [S, T] intermediates (per chain) in device memory
+and reads them back for the reduction and again for autodiff; here each
+program keeps its [S_t, T_t] tile in registers and only the [B, T]
+table and the [B, S] photometry are read.
 
-Math matches the jnp path's linear-space formulation exactly: per
-(star s, segment t), with chi2(u) = alpha u^2 - 2 beta u + gamma,
+Math is the jnp path's linear-space formulation: per (star s, segment
+t), with chi2(u) = alpha u^2 - 2 beta u + gamma,
 
-  term = exp(-resid/2 + logw - m) * sqrt(2pi/alpha)
-         * (erf(u1/sqrt2) - erf(u0/sqrt2)) / 2
+  term = exp(core - m) * width
+  core = -(resid + u_near^2)/2 + logw      (flat segments: -chi2(1/2)/2)
+  width = sqrt(2 pi / alpha) * (Phi(u1) - Phi(u0)) e^{u_near^2/2}
   out[s] = m + log(sum_t term + 1e-15) + log_norm[s]
 
-(resid = gamma - beta^2/alpha, u0 = -mu sqrt(a), u1 = (1-mu) sqrt(a),
-flat segments alpha ~ 0 fall back to exp(-gamma/2 + logw - m)).
-Transcendentals per element: 1 exp + 2 erf-polynomials (1 exp each) —
-Mosaic lowers no erf/erfc primitive, so erf is the Abramowitz-Stegun
-7.1.26 polynomial (|err| <= 1.5e-7).
+with the Phi difference from the shared ops.special.phi_interval_scaled
+(an erf polynomial: Triton lowers no erf primitive).
 
-The backward pass is a second kernel with the same tiling; softmax-style
-weights are recomputed from the saved forward output, and the
-d/d{alpha,beta,gamma} sensitivities are ANALYTIC truncated-Gaussian
-moments: for the segment integral I = int_0^1 exp(-chi2(t)/2) dt with
-chi2 = alpha t^2 - 2 beta t + gamma,
+Forward: one program per (star tile, run of segment tiles).  It walks
+its segment tiles in a loop, keeping a running (max, sum) per star in
+registers; the few runs per star tile are merged by a log-sum-exp in
+jnp.  Nothing is carried between programs, which run in any order.
 
-  d log I / d gamma = -1/2
-  d log I / d beta  = <t>        (mean of the [0,1]-truncated Gaussian)
-  d log I / d alpha = -<t^2>/2
+Backward: one program per segment tile.  It loops over the star tiles
+and accumulates its own d lo, d hi and d logw, so no reduction crosses
+programs.  The d/d{alpha, beta, gamma} sensitivities are the analytic
+truncated-Gaussian moments: for I = int_0^1 exp(-chi2(t)/2) dt,
 
-and <t>, <t^2> come from the same scaled phi/Phi pieces the forward
-already computes (phi_s = phi(u) e^{unear^2/2}, Z_s = width_s).  This
-replaces the r3 backward's three in-kernel jvp evaluations (~7 tile
-formula passes) with ~1.3 passes — the backward was the part of the
-kernel that LOST to XLA autodiff (benchmarks/pallas_parity_tpu.out r3:
-vjp 0.89-1.0x).  Photometry inputs get zero cotangents (data).
+  d log I / d gamma = -1/2,  d log I / d beta = <t>,
+  d log I / d alpha = -<t^2>/2,
 
-Layout: the table is passed TRANSPOSED ([B, T]) so per-band rows are
-contiguous lanes; star tiles adapt to S (multiple of 8) so small-cluster
-calls don't pay 2.5x padding waste.
+with <t>, <t^2> from the same scaled phi/Phi pieces the forward
+computes.  The softmax weights are recomputed from the saved output.
+Photometry inputs get zero cotangents (they are data).
+
+Bands are looped over with one ref row per band (a slice of a loaded
+value does not lower on this route); the band count needs no padding.
+Stars are padded with zero inverse variance (and zero cotangent),
+segments with mask 0.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
-from jax import Array
+from jax import Array, lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from base_tpu.ops.special import phi_interval_scaled
 
 NEG_BIG = -1e30
 SQRT_2PI = 2.5066282746310002
-INV_SQRT2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
 _ALPHA_EPS = 1e-12
 _FLAT_EPS = 3e-7
 
-MAX_S_TILE = 256
-MAX_T_TILE = 512
-# The analytic backward (truncated-Gaussian moments) holds ~2x the
-# forward's live temporaries — far below the r3 three-jvp version that
-# overflowed scoped VMEM at 512 — so bwd tiles match the forward's.
-MAX_T_TILE_BWD = 512
+
+@dataclasses.dataclass(frozen=True)
+class Tiles:
+    """Block shapes and launch parameters (all tile sizes powers of 2)."""
+
+    s: int = 8                   # stars per tile
+    t: int = 128                 # segments per tile
+    t_tiles_per_program: int = 8  # forward: segment tiles one program walks
+    num_warps: int = 4
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+# Fastest of a 7-point sweep on an H100 (700 W) at the shipped defaults
+# (S 100, T 5056, B 8, 64 tables): 1.39 ms forward + gradient against
+# 1.55 ms for (16, 64) and 6.7 ms for (32, 128, 8 warps); PERF.md.
+TILES = Tiles()
 
 
-def _abg_loop(obs, iv, loT, hiT, n_bands):
-    """Residual-form band loop: alpha/beta/gamma [S_t, T_t] on the VPU.
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    Exact where it matters (r = obs - lo is O(sigma) near the peak), but
-    ~7 VPU ops per (star, segment, band) — the kernel's dominant cost at
-    B ~ 8 (benchmarks/profile_scan.out r5)."""
-    St = obs.shape[0]
-    Tt = loT.shape[1]
-    alpha = jnp.zeros((St, Tt), jnp.float32)
-    beta = jnp.zeros((St, Tt), jnp.float32)
-    gamma = jnp.zeros((St, Tt), jnp.float32)
-    for bnd in range(n_bands):
-        lo_b = loT[bnd : bnd + 1, :]          # [1, Tt]
-        d_b = hiT[bnd : bnd + 1, :] - lo_b    # [1, Tt]
-        o_b = obs[:, bnd : bnd + 1]           # [St, 1]
-        iv_b = iv[:, bnd : bnd + 1]           # [St, 1]
-        r_b = o_b - lo_b                      # [St, Tt]
-        alpha = alpha + iv_b * d_b * d_b
-        beta = beta + iv_b * r_b * d_b
-        gamma = gamma + iv_b * r_b * r_b
+
+def _abg(obs, iv, lo, hi):
+    """alpha, beta, gamma [S_t, T_t] from per-band rows: obs/iv are lists
+    of [S_t] vectors, lo/hi lists of [T_t] vectors.  Residual form
+    (r = obs - lo is O(sigma) near the peak), as in the jnp path."""
+    alpha = beta = gamma = None
+    for o_b, iv_b, lo_b, hi_b in zip(obs, iv, lo, hi):
+        w = iv_b[:, None]
+        d = (hi_b - lo_b)[None, :]
+        r = o_b[:, None] - lo_b[None, :]
+        a, b, c = w * d * d, w * r * d, w * r * r
+        if alpha is None:
+            alpha, beta, gamma = a, b, c
+        else:
+            alpha, beta, gamma = alpha + a, beta + b, gamma + c
     return alpha, beta, gamma
-
-
-def _dot(a, b):
-    return jax.lax.dot_general(
-        a, b, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def _abg_matmul(obs, iv, loT, hiT):
-    """MXU contraction form of alpha/beta/gamma.
-
-    The three band contractions are bilinear in (obs, lo, hi), so with
-    the quadratic expanded they become five [S_t, B] @ [B, T_t] matmuls:
-
-      alpha = iv @ d^2
-      beta  = (iv*obs) @ d - iv @ (lo*d)
-      gamma = sum_b iv*obs^2  - 2 (iv*obs) @ lo + iv @ lo^2
-
-    The expansion reintroduces the float32 cancellation the residual
-    form avoids — bounded by eps_f32 * max_b |iv (obs-c)(lo-c)| — so
-    callers pass obs/lo/hi PER-BAND CENTERED (fused_log_marginals
-    subtracts the masked mean observed magnitude, a stop-gradient
-    constant that cancels from every difference).  With |obs-c| <~ 3
-    mag and iv <~ 1e4 the worst-case chi2 error is ~1e-2 against a
-    per-star chi2 scale of O(1): measured max |delta log-marginal| vs
-    the residual form is ~1e-3 (tests/test_pallas_marglik.py), far
-    below the 0.01-0.1 mag photometric noise floor — while the band
-    work leaves the VPU entirely (the r2 bf16 failure mode was 4e-3
-    RELATIVE mag error, ~50x larger than this absolute one)."""
-    ivo = iv * obs                              # [St, B]
-    c0 = jnp.sum(ivo * obs, axis=1, keepdims=True)   # [St, 1]
-    d = hiT - loT                               # [B, Tt]
-    alpha = _dot(iv, d * d)
-    beta = _dot(ivo, d) - _dot(iv, loT * d)
-    gamma = c0 - 2.0 * _dot(ivo, loT) + _dot(iv, loT * loT)
-    gamma = jnp.maximum(gamma, 0.0)
-    return alpha, beta, gamma
-
-
-def _tile_core_width(obs, iv, loT, hiT, logw, maskf, n_bands, mm):
-    """Per-tile shared computation.
-
-    Returns (core [S_t, T_t] = -chi2_min/2 + logw, masked to NEG_BIG;
-    width [S_t, T_t] = sqrt(2pi/alpha) * Phi-difference, 1.0 for flat
-    segments; (alpha, beta, gamma); aux pieces for the backward)."""
-    if mm:
-        alpha, beta, gamma = _abg_matmul(obs, iv, loT, hiT)
-    else:
-        alpha, beta, gamma = _abg_loop(obs, iv, loT, hiT, n_bands)
-    core, width, aux = _core_width_of(alpha, beta, gamma, logw, maskf)
-    return core, width, alpha, beta, gamma, aux
 
 
 def _core_width_of(alpha, beta, gamma, logw, maskf):
-    """The (core, width) formula as a pure function of (alpha, beta,
-    gamma) — shared by the forward tile and the analytic backward."""
+    """(core, width, aux) as a pure function of (alpha, beta, gamma):
+    core = on-segment chi2 minimum term + logw (NEG_BIG where masked),
+    width = the O(1) scaled Gaussian segment integral.  Shared by both
+    kernels; identical math to likelihood.ms_star_log_marginals."""
     ac = jnp.maximum(alpha, _ALPHA_EPS)
-    rsq = jax.lax.rsqrt(ac)
+    rsq = lax.rsqrt(ac)
     mu = beta * rsq * rsq
     resid = jnp.maximum(gamma - beta * mu, 0.0)
     sq = ac * rsq
     u0 = -mu * sq
     u1 = sq - mu * sq
-    # Scaled Phi-difference + true on-segment chi2 minimum in the core
-    # (see likelihood.ms_star_log_marginals — identical math).
     width_s, unear_sq = phi_interval_scaled(u0, u1)
     live = alpha > _FLAT_EPS
     mid = gamma - beta + 0.25 * alpha
     core = jnp.where(live, -0.5 * (resid + unear_sq), -0.5 * mid) + logw
     core = jnp.where(maskf > 0.5, core, NEG_BIG)
     width = jnp.where(live, SQRT_2PI * rsq * width_s, 1.0)
-    aux = (u0, u1, width_s, unear_sq, live, mu, rsq)
-    return core, width, aux
+    return core, width, (u0, u1, width_s, unear_sq, live, mu, rsq)
 
 
-def _fwd_kernel(
-    obs_ref, iv_ref, ln_ref, loT_ref, hiT_ref, logw_ref, mask_ref,
-    out_ref, m_sc, s_sc, *, n_bands: int, mm: bool,
-):
-    ti = pl.program_id(1)
-    n_t = pl.num_programs(1)
-    core, width, _, _, _, _ = _tile_core_width(
-        obs_ref[:], iv_ref[:], loT_ref[:], hiT_ref[:],
-        logw_ref[:], mask_ref[:], n_bands, mm,
-    )
-    tm = jnp.max(core, axis=1, keepdims=True)            # [St, 1]
-    tsum = jnp.sum(
-        jnp.exp(core - tm) * width, axis=1, keepdims=True
-    )
-
-    @pl.when(ti == 0)
-    def _():
-        m_sc[:] = tm
-        s_sc[:] = tsum
-
-    @pl.when(ti > 0)
-    def _():
-        m_old = m_sc[:]
-        m_new = jnp.maximum(m_old, tm)
-        s_sc[:] = s_sc[:] * jnp.exp(m_old - m_new) + tsum * jnp.exp(
-            tm - m_new
-        )
-        m_sc[:] = m_new
-
-    @pl.when(ti == n_t - 1)
-    def _():
-        out_ref[:] = m_sc[:] + jnp.log(s_sc[:] + 1e-15) + ln_ref[:]
-
-
-def _dotT(a, g):
-    """[St, B]^T @ [St, Tt] -> [B, Tt] (contract the star axis)."""
-    return jax.lax.dot_general(
-        a, g, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def _bwd_kernel(
-    obs_ref, iv_ref, loT_ref, hiT_ref, logw_ref, mask_ref,
-    out_ref, g_ref,
-    dlo_ref, dhi_ref, dlogw_ref, *, n_bands: int, mm: bool,
-):
-    si = pl.program_id(1)
-    core, width, alpha, beta, gamma, aux = _tile_core_width(
-        obs_ref[:], iv_ref[:], loT_ref[:], hiT_ref[:],
-        logw_ref[:], mask_ref[:], n_bands, mm,
-    )
-    u0, u1, width_s, unear_sq, live, mu, rsq = aux
-    # out_ref/g_ref are [St, 1]; out' = m + log(sum) so
-    # exp(core - out') * width = term / sum  (the softmax weight).
-    e = jnp.exp(core - out_ref[:])                        # [St, Tt]
-    gw = g_ref[:] * e * width   # = g * softmax weight = d out / d logw
-
-    # Analytic d log I / d {alpha, beta, gamma} via [0,1]-truncated
-    # Gaussian moments (module docstring).  phi_s = phi(u) e^{unear^2/2}
-    # shares the forward's scaling, so every ratio is O(1) even in far
-    # tails (where gw underflows to 0 and kills any residual error).
-    phi_s0 = INV_SQRT_2PI * jnp.exp(
-        0.5 * jnp.minimum(unear_sq - u0 * u0, 0.0)
-    )
-    phi_s1 = INV_SQRT_2PI * jnp.exp(
-        0.5 * jnp.minimum(unear_sq - u1 * u1, 0.0)
-    )
+def _moments(aux):
+    """(<t>, <t^2>) of the [0, 1]-truncated Gaussian of each segment.
+    phi_s = phi(u) e^{u_near^2/2} shares the forward's scaling, so every
+    ratio is O(1) even in far tails.  Flat segments used the midpoint
+    value, whose exact sensitivities are the t -> 1/2 point moments."""
+    u0, u1, width_s, unear_sq, live, mu, sigma = aux
+    phi_s0 = INV_SQRT_2PI * jnp.exp(0.5 * jnp.minimum(unear_sq - u0 * u0, 0.0))
+    phi_s1 = INV_SQRT_2PI * jnp.exp(0.5 * jnp.minimum(unear_sq - u1 * u1, 0.0))
     zs = jnp.maximum(width_s, 1e-12)
     r1 = (phi_s0 - phi_s1) / zs
-    sigma = rsq
-    t1 = jnp.clip(mu + sigma * r1, 0.0, 1.0)              # <t>
+    t1 = jnp.clip(mu + sigma * r1, 0.0, 1.0)
     t2 = (
         sigma * sigma * (1.0 + (u0 * phi_s0 - u1 * phi_s1) / zs)
         + mu * mu + 2.0 * mu * sigma * r1
     )
-    t2 = jnp.clip(t2, 0.0, 1.0)                           # <t^2>
-    # Flat branch: forward used the midpoint value exp(-chi2(1/2)/2),
-    # whose exact sensitivities are the t -> 1/2 point moments.
-    t1 = jnp.where(live, t1, 0.5)
-    t2 = jnp.where(live, t2, 0.25)
-    ga = gw * (-0.5) * t2
-    gb = gw * t1
-    gc = gw * (-0.5)
+    t2 = jnp.clip(t2, 0.0, 1.0)
+    return jnp.where(live, t1, 0.5), jnp.where(live, t2, 0.25)
 
-    first = si == 0
-    if mm:
-        # MXU form: the star-axis contractions of the cotangent chain are
-        # five [B, St] @ [St, Tt] matmuls (A1 = iv^T ga, B1 = iv^T gb,
-        # B2 = (iv obs)^T gb, C1 = iv^T gc, C2 = (iv obs)^T gc) and the
-        # band-loop identity  dlo = sum_s iv(-2 ga d - gb(d+r) - 2 gc r)
-        # expands (r = obs - lo) to pure [B, Tt] elementwise assembly.
-        obs = obs_ref[:]
-        iv = iv_ref[:]
-        ivo = iv * obs
-        loT = loT_ref[:]
-        dT = hiT_ref[:] - loT
-        A1 = _dotT(iv, ga)
-        B1 = _dotT(iv, gb)
-        B2 = _dotT(ivo, gb)
-        C1 = _dotT(iv, gc)
-        C2 = _dotT(ivo, gc)
-        dhi_t = 2.0 * dT * A1 + (B2 - loT * B1)
-        dlo_t = -2.0 * dT * A1 - (dT * B1 + B2 - loT * B1) \
-            - 2.0 * (C2 - loT * C1)
 
-        @pl.when(first)
-        def _():
-            dlo_ref[:] = dlo_t
-            dhi_ref[:] = dhi_t
+def _fwd_kernel(obsT_ref, ivT_ref, loT_ref, hiT_ref, logw_ref, mask_ref,
+                m_ref, s_ref, *, n_bands: int, n_inner: int, tiles: Tiles):
+    si = pl.program_id(0)
+    ci = pl.program_id(1)
+    ssl = pl.ds(si * tiles.s, tiles.s)
+    obs = [obsT_ref[b, ssl] for b in range(n_bands)]
+    iv = [ivT_ref[b, ssl] for b in range(n_bands)]
+    t_base = ci * (n_inner * tiles.t)
 
-        @pl.when(jnp.logical_not(first))
-        def _():
-            dlo_ref[:] = dlo_ref[:] + dlo_t
-            dhi_ref[:] = dhi_ref[:] + dhi_t
-    else:
-        for bnd in range(n_bands):
-            lo_b = loT_ref[bnd : bnd + 1, :]
-            d_b = hiT_ref[bnd : bnd + 1, :] - lo_b
-            o_b = obs_ref[:, bnd : bnd + 1]
-            iv_b = iv_ref[:, bnd : bnd + 1]
-            r_b = o_b - lo_b
-            # d alpha/d lo = -2 iv d ; d beta/d lo = -iv (d + r) ;
-            # d gamma/d lo = -2 iv r
-            dlo_t = jnp.sum(
-                iv_b * (-2.0 * ga * d_b - gb * (d_b + r_b) - 2.0 * gc * r_b),
-                axis=0, keepdims=True,
-            )                                                  # [1, Tt]
-            # d alpha/d hi = 2 iv d ; d beta/d hi = iv r
-            dhi_t = jnp.sum(
-                iv_b * (2.0 * ga * d_b + gb * r_b), axis=0, keepdims=True
-            )
+    def body(i, carry):
+        m, s = carry
+        tsl = pl.ds(t_base + i * tiles.t, tiles.t)
+        lo = [loT_ref[b, tsl] for b in range(n_bands)]
+        hi = [hiT_ref[b, tsl] for b in range(n_bands)]
+        maskf = mask_ref[tsl][None, :]
+        core, width, _ = _core_width_of(
+            *_abg(obs, iv, lo, hi), logw_ref[tsl][None, :], maskf
+        )
+        m_new = jnp.maximum(m, jnp.max(core, axis=1))
+        terms = jnp.where(
+            maskf > 0.5, jnp.exp(core - m_new[:, None]) * width, 0.0
+        )
+        return m_new, s * jnp.exp(m - m_new) + jnp.sum(terms, axis=1)
 
-            @pl.when(first)
-            def _(bnd=bnd, dlo_t=dlo_t, dhi_t=dhi_t):
-                dlo_ref[bnd : bnd + 1, :] = dlo_t
-                dhi_ref[bnd : bnd + 1, :] = dhi_t
+    init = (jnp.full((tiles.s,), NEG_BIG, jnp.float32),
+            jnp.zeros((tiles.s,), jnp.float32))
+    m, s = lax.fori_loop(0, n_inner, body, init)
+    m_ref[ci, ssl] = m
+    s_ref[ci, ssl] = s
 
-            @pl.when(jnp.logical_not(first))
-            def _(bnd=bnd, dlo_t=dlo_t, dhi_t=dhi_t):
-                dlo_ref[bnd : bnd + 1, :] = dlo_ref[bnd : bnd + 1, :] + dlo_t
-                dhi_ref[bnd : bnd + 1, :] = dhi_ref[bnd : bnd + 1, :] + dhi_t
 
-    dw_t = jnp.sum(gw, axis=0, keepdims=True)              # [1, Tt]
+def _bwd_kernel(obsT_ref, ivT_ref, loT_ref, hiT_ref, logw_ref, mask_ref,
+                out_ref, g_ref, dlo_ref, dhi_ref, dlogw_ref,
+                *, n_bands: int, n_s_tiles: int, tiles: Tiles):
+    tsl = pl.ds(pl.program_id(0) * tiles.t, tiles.t)
+    lo = [loT_ref[b, tsl] for b in range(n_bands)]
+    hi = [hiT_ref[b, tsl] for b in range(n_bands)]
+    logw = logw_ref[tsl][None, :]
+    maskf = mask_ref[tsl][None, :]
 
-    @pl.when(first)
-    def _():
-        dlogw_ref[:] = dw_t
+    def body(j, acc):
+        ssl = pl.ds(j * tiles.s, tiles.s)
+        obs = [obsT_ref[b, ssl] for b in range(n_bands)]
+        iv = [ivT_ref[b, ssl] for b in range(n_bands)]
+        core, width, aux = _core_width_of(*_abg(obs, iv, lo, hi), logw, maskf)
+        # exp(core - out) * width = term / sum: the softmax weight.
+        gw = g_ref[ssl][:, None] * jnp.exp(core - out_ref[ssl][:, None]) * width
+        t1, t2 = _moments(aux)
+        # d alpha/d lo = -2 iv d, d beta/d lo = -iv (d + r),
+        # d gamma/d lo = -2 iv r; d alpha/d hi = 2 iv d, d beta/d hi = iv r;
+        # with ga = -gw <t^2>/2, gb = gw <t>, gc = -gw/2 these collapse to
+        # d lo = iv (d gw (<t^2> - <t>) + r gw (1 - <t>)),
+        # d hi = iv (r gw <t> - d gw <t^2>).
+        g1 = gw * t1
+        g2 = gw * t2
+        new = []
+        for b in range(n_bands):
+            w = iv[b][:, None]
+            d = (hi[b] - lo[b])[None, :]
+            r = obs[b][:, None] - lo[b][None, :]
+            new.append(acc[b] + jnp.sum(w * (d * (g2 - g1) + r * (gw - g1)),
+                                        axis=0))
+        for b in range(n_bands):
+            w = iv[b][:, None]
+            d = (hi[b] - lo[b])[None, :]
+            r = obs[b][:, None] - lo[b][None, :]
+            new.append(acc[n_bands + b]
+                       + jnp.sum(w * (r * g1 - d * g2), axis=0))
+        new.append(acc[-1] + jnp.sum(gw, axis=0))
+        return tuple(new)
 
-    @pl.when(jnp.logical_not(first))
-    def _():
-        dlogw_ref[:] = dlogw_ref[:] + dw_t
+    zero = jnp.zeros((tiles.t,), jnp.float32)
+    acc = lax.fori_loop(0, n_s_tiles, body, (zero,) * (2 * n_bands + 1))
+    for b in range(n_bands):
+        dlo_ref[b, tsl] = acc[b]
+        dhi_ref[b, tsl] = acc[n_bands + b]
+    dlogw_ref[tsl] = acc[-1]
 
 
 def _pad_to(x, n, axis, value=0.0):
@@ -335,145 +225,93 @@ def _pad_to(x, n, axis, value=0.0):
     return jnp.pad(x, widths, constant_values=value)
 
 
-def _tiles(S: int, T: int, bwd: bool = False):
-    s_tile = min(MAX_S_TILE, _round_up(S, 8))
-    t_tile = min(MAX_T_TILE_BWD if bwd else MAX_T_TILE, _round_up(T, 128))
-    return s_tile, t_tile
+def _layout(S: int, T: int, tiles: Tiles):
+    """(Sp, Tp, n_split, n_inner): padded sizes, forward runs per star
+    tile and segment tiles per run."""
+    n_t = _cdiv(T, tiles.t)
+    n_split = _cdiv(n_t, tiles.t_tiles_per_program)
+    n_inner = _cdiv(n_t, n_split)
+    return (_cdiv(S, tiles.s) * tiles.s, n_split * n_inner * tiles.t,
+            n_split, n_inner)
 
 
-def _fwd(obs, inv_var, log_norm, lo, hi, logw, maskf, interpret, mm):
+def _out(shape, *inputs):
+    """Output spec varying over every mesh axis an input varies over
+    (shard_map with check_vma needs it; empty outside shard_map)."""
+    vma = frozenset().union(*(jax.typeof(x).vma for x in inputs))
+    return jax.ShapeDtypeStruct(shape, jnp.float32, vma=vma)
+
+
+def _params(tiles: Tiles):
+    return plgpu.CompilerParams(num_warps=tiles.num_warps, num_stages=2)
+
+
+def _padded_inputs(obs, inv_var, lo, hi, logw, maskf, Sp, Tp):
+    return (
+        _pad_to(obs.T, Sp, 1), _pad_to(inv_var.T, Sp, 1),   # [B, Sp]
+        _pad_to(lo.T, Tp, 1), _pad_to(hi.T, Tp, 1),         # [B, Tp]
+        _pad_to(logw, Tp, 0), _pad_to(maskf, Tp, 0),        # [Tp]
+    )
+
+
+def _fwd(obs, inv_var, log_norm, lo, hi, logw, maskf, interpret, tiles):
     S, B = obs.shape
     T = lo.shape[0]
-    S_TILE, T_TILE = _tiles(S, T)
-    Sp = _round_up(S, S_TILE)
-    Tp = _round_up(T, T_TILE)
-
-    obs_p = _pad_to(obs, Sp, 0)
-    iv_p = _pad_to(inv_var, Sp, 0)
-    ln_p = _pad_to(log_norm.reshape(S, 1), Sp, 0)
-    loT = _pad_to(lo.T, Tp, 1)                      # [B, Tp]
-    hiT = _pad_to(hi.T, Tp, 1)
-    logw_p = _pad_to(logw.reshape(1, T), Tp, 1)
-    mask_p = _pad_to(maskf.reshape(1, T), Tp, 1)    # pad slots masked out
-
-    grid = (Sp // S_TILE, Tp // T_TILE)
-    out = pl.pallas_call(
-        functools.partial(_fwd_kernel, n_bands=B, mm=mm),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((S_TILE, B), lambda si, ti: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_TILE, B), lambda si, ti: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_TILE, 1), lambda si, ti: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, T_TILE), lambda si, ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, T_TILE), lambda si, ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), lambda si, ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), lambda si, ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((S_TILE, 1), lambda si, ti: (si, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Sp, 1), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((S_TILE, 1), jnp.float32),
-            pltpu.VMEM((S_TILE, 1), jnp.float32),
-        ],
+    Sp, Tp, n_split, n_inner = _layout(S, T, tiles)
+    args = _padded_inputs(obs, inv_var, lo, hi, logw, maskf, Sp, Tp)
+    part = _out((n_split, Sp), *args)
+    m, s = pl.pallas_call(
+        functools.partial(_fwd_kernel, n_bands=B, n_inner=n_inner,
+                          tiles=tiles),
+        grid=(Sp // tiles.s, n_split),
+        out_shape=(part, part),
+        backend="triton",
+        compiler_params=_params(tiles),
         interpret=interpret,
-    )(obs_p, iv_p, ln_p, loT, hiT, logw_p, mask_p)
-    out = out[:S, 0]
-    residuals = (obs, inv_var, log_norm, lo, hi, logw, maskf, out)
-    return out, residuals
+        name="marglik_fwd",
+    )(*args)
+    mx = jnp.max(m, axis=0)
+    tot = jnp.sum(s * jnp.exp(m - mx[None, :]), axis=0)
+    core = jnp.where(tot > 0, mx + jnp.log(tot + 1e-15), NEG_BIG)[:S]
+    return core + log_norm, (obs, inv_var, lo, hi, logw, maskf, core)
 
 
-def _fwd_rule(interpret, mm, obs, inv_var, log_norm, lo, hi, logw, maskf):
-    return _fwd(obs, inv_var, log_norm, lo, hi, logw, maskf, interpret, mm)
-
-
-def _bwd_rule(interpret, mm, residuals, g):
-    obs, inv_var, log_norm, lo, hi, logw, maskf, out = residuals
+def _bwd(interpret, tiles, residuals, g):
+    obs, inv_var, lo, hi, logw, maskf, core = residuals
     S, B = obs.shape
     T = lo.shape[0]
-    S_TILE, T_TILE = _tiles(S, T, bwd=True)
-    Sp = _round_up(S, S_TILE)
-    Tp = _round_up(T, T_TILE)
-
-    obs_p = _pad_to(obs, Sp, 0)
-    iv_p = _pad_to(inv_var, Sp, 0)
-    loT = _pad_to(lo.T, Tp, 1)
-    hiT = _pad_to(hi.T, Tp, 1)
-    logw_p = _pad_to(logw.reshape(1, T), Tp, 1)
-    mask_p = _pad_to(maskf.reshape(1, T), Tp, 1)
-    # The kernel's core excludes log_norm while out includes it: remove
-    # it so exp(core - out) is the true per-element softmax weight.
-    # Padded stars: g = 0 kills their contributions.
-    out_p = _pad_to((out - log_norm).reshape(S, 1), Sp, 0)
-    g_p = _pad_to(g.reshape(S, 1), Sp, 0)
-
-    grid = (Tp // T_TILE, Sp // S_TILE)   # s innermost: accumulate over s
+    Sp, Tp, _, _ = _layout(S, T, tiles)
+    # Padded stars: g = 0 and an output of +1e30 give them zero weight.
+    out_p = _pad_to(core, Sp, 0, value=-NEG_BIG)
+    g_p = _pad_to(g, Sp, 0)
+    args = (*_padded_inputs(obs, inv_var, lo, hi, logw, maskf, Sp, Tp),
+            out_p, g_p)
     dloT, dhiT, dlogw = pl.pallas_call(
-        functools.partial(_bwd_kernel, n_bands=B, mm=mm),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((S_TILE, B), lambda ti, si: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_TILE, B), lambda ti, si: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_TILE, 1), lambda ti, si: (si, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_TILE, 1), lambda ti, si: (si, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((B, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), lambda ti, si: (0, ti),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, Tp), jnp.float32),
-            jax.ShapeDtypeStruct((B, Tp), jnp.float32),
-            jax.ShapeDtypeStruct((1, Tp), jnp.float32),
-        ],
+        functools.partial(_bwd_kernel, n_bands=B, n_s_tiles=Sp // tiles.s,
+                          tiles=tiles),
+        grid=(Tp // tiles.t,),
+        out_shape=(_out((B, Tp), *args), _out((B, Tp), *args),
+                   _out((Tp,), *args)),
+        backend="triton",
+        compiler_params=_params(tiles),
         interpret=interpret,
-    )(obs_p, iv_p, loT, hiT, logw_p, mask_p, out_p, g_p)
-
-    dlo = dloT[:, :T].T
-    dhi = dhiT[:, :T].T
-    dlogw_out = dlogw[0, :T]
-    zeros_obs = jnp.zeros_like(obs)
-    zeros_iv = jnp.zeros_like(inv_var)
-    # log_norm enters additively: d out/d log_norm = identity.
-    dln = g
-    dmask = jnp.zeros_like(maskf)
-    return (zeros_obs, zeros_iv, dln, dlo, dhi, dlogw_out, dmask)
+        name="marglik_bwd",
+    )(*args)
+    # log_norm enters additively: d out / d log_norm = identity.
+    return (jnp.zeros_like(obs), jnp.zeros_like(inv_var), g,
+            dloT[:, :T].T, dhiT[:, :T].T, dlogw[:T], jnp.zeros_like(maskf))
 
 
-@functools.lru_cache(maxsize=8)
-def _make_fused(interpret: bool, mm: bool):
+@functools.lru_cache(maxsize=16)
+def _make_fused(interpret: bool, tiles: Tiles):
     @jax.custom_vjp
     def f(obs, inv_var, log_norm, lo, hi, logw, maskf):
-        out, _ = _fwd(obs, inv_var, log_norm, lo, hi, logw, maskf,
-                      interpret, mm)
-        return out
+        return _fwd(obs, inv_var, log_norm, lo, hi, logw, maskf,
+                    interpret, tiles)[0]
 
     f.defvjp(
-        functools.partial(_fwd_rule, interpret, mm),
-        functools.partial(_bwd_rule, interpret, mm),
+        lambda *a: _fwd(*a, interpret, tiles),
+        functools.partial(_bwd, interpret, tiles),
     )
     return f
 
@@ -487,36 +325,20 @@ def fused_log_marginals(
     logw: Array,     # [T]
     maskf: Array,    # [T] float {0, 1}
     interpret: bool = False,
-    matmul: bool | None = None,
+    tiles: Tiles = TILES,
 ) -> Array:
-    """Per-star log marginal cluster likelihood, fused on-chip.  Matches
-    likelihood.ms_star_log_marginals(stars, table) with the table pieces
-    passed explicitly.  Differentiable wrt log_norm/lo/hi/logw.
-
-    `matmul`: run the alpha/beta/gamma band contractions on the MXU
-    (_abg_matmul).  Inputs are per-band centered here on the masked mean
-    observed magnitude — a stop-gradient constant shift that cancels
-    from every (obs - model) difference, so cotangents w.r.t. the
-    ORIGINAL lo/hi are the centered ones unchanged; it exists only to
-    bound the expanded-quadratic float32 cancellation (see
-    _abg_matmul).  Default False: measured on-chip (r5, 64 chains,
-    S=100, T=504) the MXU form saves nothing — the kernel is bound by
-    the transcendental core (erf/exp/rsqrt), not the band FMAs — so the
-    exact residual-form band loop (bit-identical to
-    ms_star_log_marginals' formulation) stays the production path and
-    the matmul path remains parity-tested for wider-band sets (B >~ 32,
-    where the contraction share grows)."""
-    if matmul is None:
-        matmul = False
-    if matmul:
-        nobs = jnp.sum(inv_var > 0, axis=0)
-        c = jax.lax.stop_gradient(
-            jnp.sum(jnp.where(inv_var > 0, obs, 0.0), axis=0)
-            / jnp.maximum(nobs, 1)
-        )
-        obs = jnp.where(inv_var > 0, obs - c[None, :], 0.0)
-        lo = lo - c[None, :]
-        hi = hi - c[None, :]
-    return _make_fused(bool(interpret), bool(matmul))(
-        obs, inv_var, log_norm, lo, hi, logw, maskf
+    """Per-star log marginal cluster likelihood [S], fused.  Matches
+    likelihood.ms_star_log_marginals with the table pieces passed
+    explicitly; differentiable w.r.t. log_norm, lo, hi and logw.
+    `interpret` runs the Pallas interpreter (tests on the CPU)."""
+    args = (obs, inv_var, log_norm, lo, hi, logw, maskf)
+    # Under shard_map every input must vary over the same mesh axes as
+    # the kernel's outputs (the pcast's transpose sums the cotangents of
+    # replicated inputs across the axes).
+    vma = frozenset().union(*(jax.typeof(x).vma for x in args))
+    args = tuple(
+        x if jax.typeof(x).vma == vma
+        else lax.pcast(x, tuple(vma - jax.typeof(x).vma), to="varying")
+        for x in args
     )
+    return _make_fused(bool(interpret), tiles)(*args)

@@ -1,7 +1,7 @@
 """Numerically-stable special ops used by the marginalized likelihood.
 
 The reference accumulates exp(logPost) contributions in double precision
-[upstream: base9/marg.cpp — SURVEY.md C10]; on TPU we work in float32 and
+[upstream: base9/marg.cpp — SURVEY.md C10]; here we work in float32 and
 use max-shifted logsumexp with explicit masking so that padded EEP /
 quadrature slots contribute exactly zero probability (not -inf * 0 NaNs,
 the hazard flagged in SURVEY.md §7 "hard parts" #2).
@@ -50,7 +50,7 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 def _erf_poly_from_e(ax: Array, e: Array) -> Array:
     """erf(|x|) via Abramowitz-Stegun 7.1.26 given e = exp(-x^2)
-    (|abs err| <= 1.5e-7).  Mosaic-safe: mul/add only."""
+    (|abs err| <= 1.5e-7).  Kernel-safe: mul/add only."""
     t = 1.0 / (1.0 + 0.3275911 * ax)
     poly = t * (
         0.254829592
@@ -76,7 +76,8 @@ def phi_interval_scaled(u0: Array, u1: Array) -> tuple[Array, Array]:
     - one-sided far-tail interval: erf cancels catastrophically, so use
       the Mills asymptotic: Q(u) e^{u^2/2} = phi(0) / u (1 - 1/u^2 +
       3/u^4) — the scaling cancels the tiny exponential analytically.
-    Mosaic-safe throughout (no erf/erfc primitives).
+    Kernel-safe throughout (no erf/erfc primitives, which Pallas's
+    Triton route does not lower).
     """
     x0 = u0 * _INV_SQRT2
     x1 = u1 * _INV_SQRT2

@@ -4,19 +4,19 @@ The reference's MPI support was removed years ago (the fossil
 `MpiMcmcApplication` name — SURVEY.md §2.4); here multi-host is
 first-class but thin: `jax.distributed.initialize` wires the hosts, the
 global device list feeds the same (chains x stars) mesh, and every
-collective in the samplers/SMC rides XLA over ICI within a slice and DCN
-across hosts — no custom transport (SURVEY.md §5 comm backend).
+collective in the samplers/SMC rides XLA's own collectives (NCCL on
+GPUs) — no custom transport (SURVEY.md §5 comm backend).
 
-Usage on each host of a pod slice:
+Usage on each host:
 
     from base_tpu.parallel import distributed, mesh
-    distributed.initialize()              # env-driven (TPU pods: automatic)
+    distributed.initialize("host0:1234", num_processes=2, process_id=i)
     m = mesh.make_mesh(n_star_shards=2)   # spans ALL hosts' devices
     # samplers/SMC shard_map over m exactly as single-host
 
-Checkpoint/resume across hosts: every process saves/restores the same
-Orbax checkpoint path (io.checkpoint is multi-host aware through Orbax);
-on coordinator failure, restart all processes and resume.
+Checkpoint/resume across hosts: give each process its own checkpoint
+path (io.checkpoint writes one npz file); on coordinator failure,
+restart all processes and resume.
 """
 from __future__ import annotations
 
@@ -28,9 +28,9 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize jax.distributed.  On TPU pods all arguments are
-    discovered from the environment; pass them explicitly for CPU/GPU
-    multi-process testing."""
+    """Initialize jax.distributed.  Nothing discovers a GPU cluster on
+    its own: pass the coordinator address, process count and this
+    process's id."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

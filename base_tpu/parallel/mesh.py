@@ -2,20 +2,22 @@
 
 The reference's only parallelism is a CPU thread pool over stars inside
 one process [upstream: base9/Utility.hpp thread pool — SURVEY.md C15,
-§2.4].  The TPU-native layout is a 2-D logical mesh:
+§2.4].  Here the layout is a 2-D logical mesh:
 
   axis "chains" — data-parallel axis: independent MCMC chains / SMC
                   particle blocks (the DP analog);
   axis "stars"  — the long-reduction axis: the per-star log-likelihood
-                  sum is sharded so no chip ever holds all stars' [S, T]
+                  sum is sharded so no device ever holds all stars' [S, T]
                   workspace (the sequence-parallel / ring-attention
                   analog, SURVEY.md §2.4).
 
 Collectives: likelihood partial sums ride `psum` over "stars";
 mass-matrix pooling, step-size pooling and R-hat/ESS ride
-`psum`/`all_gather` over "chains".  Multi-host: `jax.distributed`
-initializes the global device list and the same mesh spans hosts (ICI
-within a slice, DCN across).
+`psum`/`all_gather` over "chains", which XLA hands to NCCL on GPUs.
+The mesh is logical: the cards of one host are joined all to all
+(NVLink), so its shape follows the algorithm alone.  Multi-host:
+`jax.distributed` initializes the global device list and the same mesh
+spans hosts.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Photometric noise model — the scatterCluster equivalent.
 
-TPU-native rebuild of the reference's noise stage [upstream:
+Rebuild of the reference's noise stage [upstream:
 scatterCluster/ — SURVEY.md E4, §3.3]: per-band magnitude-dependent
 Gaussian uncertainties from an S/N-vs-magnitude model with per-band
 exposure times, and bright/faint cutoffs applied on a designated

@@ -1,6 +1,6 @@
 """Forward cluster simulation — the simCluster equivalent.
 
-TPU-native rebuild of the reference simulator [upstream: simCluster/ —
+Rebuild of the reference simulator [upstream: simCluster/ —
 SURVEY.md E3, §3.3]: draw ZAMS masses from the IMF, assign binaries,
 evolve every star through the *same* model grids the sampler uses (one
 pure function, vmapped), and emit noiseless photometry.  Stars whose

@@ -1,6 +1,6 @@
 // Native IO runtime for base-tpu: fast text-table parsing + async writer.
 //
-// TPU-native counterpart of the reference's native IO/runtime layer
+// Counterpart of the reference's native IO/runtime layer
 // [upstream: base9/IO/*.cpp BackingStores + base9/Utility.hpp thread pool
 // — SURVEY.md C14/C15]: the compute path is JAX/XLA, but startup grid
 // ingestion (multi-MB whitespace tables: isochrone grids, WD cooling

@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if __name__ == "__main__" and os.environ.get("BIAS_STUDY_TPU") != "1":
+if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
@@ -62,14 +62,14 @@ def make_data(S=200, n_field=40, seed=0, censor=True):
     return grid, stars
 
 
-def map_laplace(grid, stars, upsample, n_q, use_pallas=False):
+def map_laplace(grid, stars, upsample, n_q):
     from base_tpu.model import posterior as post
 
     model = post.make_single_pop_model(
         grid, stars, prior_mean=TRUTH,
         prior_sigma=np.array([-1, -1, 0.3, 0.2, 0.1, -1, -1, -1, -1],
                              np.float32),
-        n_q=n_q, upsample=upsample, use_pallas=use_pallas)
+        n_q=n_q, upsample=upsample)
 
     free = jnp.asarray(FREE)
 

@@ -102,3 +102,31 @@ def test_resume_after_partial(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(want)[:40], np.asarray(partial)
     )
+
+
+def test_checkpoint_is_one_atomic_npz(tmp_path):
+    """One npz file at the path, replaced whole: no temporary left over,
+    an overwrite returns the new tree, dtypes follow `like`."""
+    p = str(tmp_path / "ck")
+    ckpt.save_checkpoint(p, dict(a=np.zeros(3, np.float32), n=np.int32(1)))
+    ckpt.save_checkpoint(p, dict(a=np.ones(3, np.float32), n=np.int32(2)))
+    assert sorted(x.name for x in tmp_path.iterdir()) == ["ck"]
+    with np.load(p) as z:
+        assert sorted(z.files) == ["leaf_0", "leaf_1"]
+    like = dict(a=np.zeros(3, np.float32), n=np.int32(0))
+    got = ckpt.restore_checkpoint(p, like)
+    np.testing.assert_array_equal(got["a"], np.ones(3, np.float32))
+    assert int(got["n"]) == 2 and got["a"].dtype == np.float32
+
+
+def test_checkpoint_restore_rejects_other_structure(tmp_path):
+    p = str(tmp_path / "ck")
+    ckpt.save_checkpoint(p, dict(a=np.zeros(3, np.float32)))
+    import pytest
+
+    with pytest.raises(ValueError, match="shape"):
+        ckpt.restore_checkpoint(p, dict(a=np.zeros(4, np.float32)))
+    with pytest.raises(ValueError, match="arrays"):
+        ckpt.restore_checkpoint(
+            p, dict(a=np.zeros(3, np.float32), b=np.zeros(1)))
+    assert not ckpt.checkpoint_exists(str(tmp_path / "missing"))

@@ -222,19 +222,11 @@ def test_sqlite_store_roundtrip(workdir, rng):
     assert meta["sampler"] == "hmc" and meta["seed"] == "7"
 
 
-def test_use_pallas_auto_resolution():
-    """mcmc.usePallas='auto' resolves by backend: False on the CPU CI
-    backend, passthrough for explicit values (VERDICT r3 #7)."""
-    from base_tpu.io.settings import resolve_use_pallas
-
-    assert resolve_use_pallas("auto") is False  # CI backend is CPU
-    assert resolve_use_pallas(True) is True
-    assert resolve_use_pallas(False) is False
-    assert resolve_use_pallas("true") is True
-    assert resolve_use_pallas("off") is False
-    for bad in ("ture", "enable", "maybe"):
-        with pytest.raises(ValueError):
-            resolve_use_pallas(bad)
+def test_removed_use_pallas_key_is_rejected():
+    """mcmc.usePallas is gone (the marginal's implementation follows the
+    device); an old config naming it fails loudly (docs/MIGRATION.md)."""
+    with pytest.raises(KeyError):
+        load_settings(None, ["mcmc.usePallas=true"])
 
 
 def test_multipop_settings_section():

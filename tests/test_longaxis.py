@@ -1,7 +1,7 @@
 """CI-scale rehearsal of the pod-scale (BASELINE config 5) recipe:
 VI-initialized sharded HMC on the 8-device mesh (chains x stars), the
-exact pipeline benchmarks/longaxis_10k_converged.py runs on the chip
-(VERDICT r3 #1).  Star count is CI-sized; the code path is identical:
+pipeline the 10k-star configuration runs on four GPUs (ROADMAP.md,
+item 2.2).  Star count is CI-sized; the code path is identical:
 full-rank ADVI -> covariance warm-starts the sharded warmup metric
 (inv_mass0) -> chains start from VI draws -> converged chains."""
 import jax

@@ -1,7 +1,7 @@
 """Multi-host logic via N local processes (SURVEY.md §4.2 item 4):
 jax.distributed with two CPU processes on localhost — the coordinator
 wiring, global device view, and a cross-process psum must work exactly
-as they would across TPU hosts."""
+as they would across hosts."""
 import os
 import subprocess
 import sys

@@ -1,6 +1,9 @@
-"""Pallas fused-marginal kernel parity vs the jnp path (forward and
-VJP), run in interpreter mode on CPU (SURVEY.md §4.2 golden-parity
-strategy: pallas(x) ~= jnp(x) over random batches)."""
+"""Fused-marginal kernel parity against the jnp path (forward and VJP),
+run through the Pallas interpreter on the CPU (SURVEY.md §4.2
+golden-parity strategy: pallas(x) ~= jnp(x) over random batches), plus
+the wrapper's layout (padding, run split) and the platform dispatch."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,8 +11,12 @@ import pytest
 
 from base_tpu.model import likelihood as lk
 from base_tpu.model.stardata import make_ms_stars
-from base_tpu.ops.pallas_marglik import fused_log_marginals
-from base_tpu.ops.special import masked_logsumexp
+from base_tpu.ops import pallas_marglik as pm
+from base_tpu.ops.pallas_marglik import Tiles, fused_log_marginals
+
+# Small tiles so CPU-sized problems still take several programs, runs
+# and loop trips.
+SMALL = Tiles(s=8, t=16, t_tiles_per_program=2)
 
 
 def _random_problem(rng, S=37, T=133, B=8):
@@ -35,84 +42,101 @@ def _jnp_ref(stars, table):
     return lk.ms_star_log_marginals(stars, table)
 
 
-def _pallas(stars, table, matmul=None):
+def _pallas(stars, table, tiles=pm.TILES):
     return fused_log_marginals(
         stars.obs_mags, stars.inv_var, stars.log_norm,
         table.lo, table.hi, table.logw,
-        table.mask.astype(jnp.float32), True,  # interpret on CPU
-        matmul=matmul,
+        table.mask.astype(jnp.float32), interpret=True, tiles=tiles,
     )
 
 
-@pytest.mark.parametrize("matmul", [False, True])
-def test_forward_parity_contraction_forms(rng, matmul):
-    """Both alpha/beta/gamma forms (residual band loop and the MXU
-    matmul expansion with per-band centering) must match the jnp path;
-    the matmul form additionally must match the LOOP form to ~1e-3
-    (its float32 cancellation budget, _abg_matmul docstring)."""
-    stars, table = _random_problem(rng, S=64, T=128)
-    want = np.asarray(_jnp_ref(stars, table))
-    got = np.asarray(_pallas(stars, table, matmul=matmul))
-    sel = want > -200
+def _assert_fwd(got, want):
+    sel = want > -200  # compare where float32 has real precision
+    assert sel.sum() >= max(1, sel.size // 2)
+    # Same erf polynomial on both sides; the kernel sums per tile with a
+    # running max, so only float32 reassociation separates them.
     np.testing.assert_allclose(got[sel], want[sel], rtol=0, atol=5e-2)
-    loop = np.asarray(_pallas(stars, table, matmul=False))
-    np.testing.assert_allclose(got[sel], loop[sel], rtol=0, atol=5e-3)
+
+
+def _grads(f, stars, table, g):
+    def loss(lo, hi, logw, ln):
+        st = dataclasses.replace(stars, log_norm=ln)
+        t = lk.SegmentTable(lo=lo, hi=hi, logw=logw, mask=table.mask)
+        return jnp.sum(f(st, t) * g)
+
+    return jax.grad(loss, argnums=(0, 1, 2, 3))(
+        table.lo, table.hi, table.logw, stars.log_norm)
+
+
+def _assert_grads(got, want):
+    for w, gt, name in zip(want, got, ["lo", "hi", "logw", "log_norm"]):
+        w = np.asarray(w)
+        gt = np.asarray(gt)
+        scale = np.abs(w).max() + 1e-6
+        # analytic truncated-Gaussian moments vs autodiff through the
+        # erf polynomial: ~1e-4 relative, well inside what the HMC
+        # accept step absorbs.
+        np.testing.assert_allclose(
+            gt / scale, w / scale, atol=5e-3, err_msg=name
+        )
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_forward_parity_contraction_forms(rng, split):
+    """The segment axis contracted in one run per star tile and split
+    over several runs merged by log-sum-exp must both match the jnp
+    path, and each other to float32 reassociation."""
+    stars, table = _random_problem(rng, S=64, T=128)
+    tiles = Tiles(s=16, t=16, t_tiles_per_program=2 if split else 8)
+    assert pm._layout(64, 128, tiles)[2] == (4 if split else 1)
+    want = np.asarray(_jnp_ref(stars, table))
+    got = np.asarray(_pallas(stars, table, tiles))
+    _assert_fwd(got, want)
+    one = np.asarray(_pallas(stars, table, Tiles(s=16, t=16,
+                                                 t_tiles_per_program=8)))
+    sel = want > -200
+    np.testing.assert_allclose(got[sel], one[sel], rtol=0, atol=1e-4)
 
 
 def test_forward_parity(rng):
     stars, table = _random_problem(rng)
-    want = np.asarray(_jnp_ref(stars, table))
-    got = np.asarray(_pallas(stars, table))
-    sel = want > -200  # compare where float32 has real precision
-    assert sel.sum() > 10
-    # A-S erf polynomial vs exact erf: up to a few e-2 where a single
-    # near-cancelling segment dominates; the kernel's own gradients are
-    # exactly consistent with its forward (see module docstring).
-    np.testing.assert_allclose(got[sel], want[sel], rtol=0, atol=5e-2)
+    _assert_fwd(np.asarray(_pallas(stars, table, SMALL)),
+                np.asarray(_jnp_ref(stars, table)))
 
 
 def test_forward_parity_tile_multiple(rng):
-    # Exact tile-size shapes (no padding path).
-    stars, table = _random_problem(rng, S=256, T=256)
-    want = np.asarray(_jnp_ref(stars, table))
-    got = np.asarray(_pallas(stars, table))
-    sel = want > -200
-    np.testing.assert_allclose(got[sel], want[sel], rtol=0, atol=5e-2)
+    # Exact tile-size shapes (no padding path) with the shipped tiles.
+    stars, table = _random_problem(rng, S=64, T=512)
+    _assert_fwd(np.asarray(_pallas(stars, table)),
+                np.asarray(_jnp_ref(stars, table)))
+
+
+@pytest.mark.parametrize("S,T,B", [(5, 40, 3), (17, 75, 5), (33, 130, 8)])
+def test_forward_parity_padding(rng, S, T, B):
+    """Star, segment and band counts that are not tile multiples (nor
+    powers of two): padded stars and segments must not leak."""
+    stars, table = _random_problem(rng, S=S, T=T, B=B)
+    Sp, Tp, _, _ = pm._layout(S, T, SMALL)
+    assert Sp > S and Tp > T
+    _assert_fwd(np.asarray(_pallas(stars, table, SMALL)),
+                np.asarray(_jnp_ref(stars, table)))
 
 
 def test_vjp_parity(rng):
     stars, table = _random_problem(rng, S=23, T=67)
     g = rng.normal(0, 1.0, 23).astype(np.float32)
+    want = _grads(_jnp_ref, stars, table, g)
+    got = _grads(lambda s, t: _pallas(s, t, SMALL), stars, table, g)
+    _assert_grads(got, want)
 
-    def f_ref(lo, hi, logw, ln):
-        t = lk.SegmentTable(lo=lo, hi=hi, logw=logw, mask=table.mask)
-        st = stars
-        import dataclasses
 
-        st = dataclasses.replace(st, log_norm=ln)
-        return jnp.sum(_jnp_ref(st, t) * g)
-
-    def f_pal(lo, hi, logw, ln):
-        return jnp.sum(
-            fused_log_marginals(
-                stars.obs_mags, stars.inv_var, ln, lo, hi, logw,
-                table.mask.astype(jnp.float32), True,
-            )
-            * g
-        )
-
-    args = (table.lo, table.hi, table.logw, stars.log_norm)
-    want = jax.grad(f_ref, argnums=(0, 1, 2, 3))(*args)
-    got = jax.grad(f_pal, argnums=(0, 1, 2, 3))(*args)
-    for w, gt, name in zip(want, got, ["lo", "hi", "logw", "log_norm"]):
-        w = np.asarray(w)
-        gt = np.asarray(gt)
-        scale = np.abs(w).max() + 1e-6
-        # float32 + erfc-based tails vs log_ndtr: ~3e-3 relative worst
-        # case, well inside what the MH correction absorbs.
-        np.testing.assert_allclose(
-            gt / scale, w / scale, atol=5e-3, err_msg=name
-        )
+@pytest.mark.parametrize("S,T,B", [(9, 50, 3), (20, 140, 6)])
+def test_vjp_parity_padding(rng, S, T, B):
+    stars, table = _random_problem(rng, S=S, T=T, B=B)
+    g = rng.normal(0, 1.0, S).astype(np.float32)
+    want = _grads(_jnp_ref, stars, table, g)
+    got = _grads(lambda s, t: _pallas(s, t, SMALL), stars, table, g)
+    _assert_grads(got, want)
 
 
 def test_vmap_over_tables(rng):
@@ -126,109 +150,66 @@ def test_vmap_over_tables(rng):
     def one(lo, hi):
         return fused_log_marginals(
             stars.obs_mags, stars.inv_var, stars.log_norm,
-            lo, hi, table.logw, table.mask.astype(jnp.float32), True,
+            lo, hi, table.logw, table.mask.astype(jnp.float32),
+            interpret=True, tiles=SMALL,
         )
 
     got = np.asarray(jax.vmap(one)(los, his))
     for i in range(C):
         t = lk.SegmentTable(lo=los[i], hi=his[i], logw=table.logw,
                             mask=table.mask)
-        want = np.asarray(_jnp_ref(stars, t))
-        sel = want > -200
-        np.testing.assert_allclose(got[i][sel], want[sel], atol=5e-2)
+        _assert_fwd(got[i], np.asarray(_jnp_ref(stars, t)))
 
 
-# ---------------------------------------------------------------------------
-# Fused table-build kernel (ops.pallas_table) parity
-# ---------------------------------------------------------------------------
+def test_vmap_value_and_grad_over_tables(rng):
+    """The HMC shape: value_and_grad vmapped over chains' tables."""
+    stars, table = _random_problem(rng, S=12, T=40, B=4)
+    C = 2
+    los = jnp.stack([table.lo + 0.02 * i for i in range(C)])
+    g = rng.normal(0, 1.0, 12).astype(np.float32)
+
+    def make(f):
+        def loss(lo):
+            t = lk.SegmentTable(lo=lo, hi=table.hi, logw=table.logw,
+                                mask=table.mask)
+            return jnp.sum(f(stars, t) * g)
+        return jax.vmap(jax.value_and_grad(loss))
+
+    v_ref, g_ref = make(_jnp_ref)(los)
+    v_got, g_got = make(lambda s, t: _pallas(s, t, SMALL))(los)
+    np.testing.assert_allclose(np.asarray(v_got), np.asarray(v_ref),
+                               rtol=1e-4)
+    for i in range(C):
+        _assert_grads([g_got[i]], [g_ref[i]])
 
 
-def _iso_problem(rng, E=24, B=6, upsample=1):
-    import numpy as np
-
-    from base_tpu.grids import synthetic
-    from base_tpu.grids.isochrone import derive_isochrone, upsample_isochrone
-
-    grid = synthetic.make_grid(n_eep=E, bands=["U", "B", "V", "R", "I",
-                                               "J"][:B])
-    base = derive_isochrone(grid, jnp.asarray(-0.5), jnp.asarray(0.27),
-                            jnp.asarray(9.3))
-    iso = upsample_isochrone(base, upsample) if upsample > 1 else base
-    q = jnp.linspace(0.0, 1.0, 7)
-    coefs = jnp.asarray(np.linspace(1.2, 0.4, B), jnp.float32)
-    return iso, base, q, coefs
+def test_all_masked_table_matches_reference(rng):
+    """A table with no valid segment gives the jnp path's sentinel."""
+    stars, table = _random_problem(rng, S=6, T=20, B=3)
+    table = table._replace(mask=jnp.zeros_like(table.mask))
+    got = np.asarray(_pallas(stars, table, SMALL))
+    want = np.asarray(_jnp_ref(stars, table))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-@pytest.mark.parametrize("upsample", [1, 3])
-def test_fused_table_matches_jnp(rng, upsample):
-    """build_segment_table_fused == build_segment_table (binaries) to
-    float32 reassociation, including the upsampled/base-secondary split."""
-    iso, base, q, coefs = _iso_problem(rng, upsample=upsample)
-    mod = jnp.asarray(9.7)
-    av = jnp.asarray(0.23)
-    want = lk.build_segment_table(iso, q, mod, av, coefs, binaries=True,
-                                  sec_iso=base)
-    got = lk.build_segment_table_fused(iso, q, mod, av, coefs,
-                                       sec_iso=base, interpret=True)
-    np.testing.assert_allclose(np.asarray(got.lo), np.asarray(want.lo),
-                               atol=2e-4)
-    np.testing.assert_allclose(np.asarray(got.hi), np.asarray(want.hi),
-                               atol=2e-4)
-    np.testing.assert_allclose(np.asarray(got.logw), np.asarray(want.logw),
-                               atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(got.mask),
-                                  np.asarray(want.mask))
+def _lowered_text(platform):
+    rng = np.random.default_rng(0)
+    stars, table = _random_problem(rng, S=8, T=32, B=3)
+    f = jax.jit(jax.grad(lambda lo: jnp.sum(lk.ms_log_marginals(
+        stars, table._replace(lo=lo)))))
+    return f.trace(table.lo).lower(lowering_platforms=(platform,)).as_text()
 
 
-def test_fused_table_vjp_matches_jnp(rng):
-    """Gradients of a table functional w.r.t. the proposal inputs must
-    agree between the fused kernel's analytic backward and XLA autodiff
-    of the jnp builder — this is the table half of the fusion's
-    correctness story (cotangents flow through the smoothstep weights
-    into the base mass axis AND the node masses)."""
-    iso, base, q, coefs = _iso_problem(rng, upsample=2)
-    w_lo = jnp.asarray(rng.normal(0, 1, (iso.mass.shape[0] - 1)
-                                  * q.shape[0] * coefs.shape[0])
-                       .reshape(-1, coefs.shape[0]).astype(np.float32))
+def test_dispatch_cpu_lowers_plain_path():
+    """Compiled for the CPU, the marginal is the plain jnp path: no
+    Pallas kernel reaches the program."""
+    text = _lowered_text("cpu")
+    assert "triton" not in text and "marglik" not in text
 
-    def functional(builder):
-        def f(mod, av, mags, sec_mags, s_mass, s_axis, s_mm):
-            import dataclasses as dc
 
-            # Separate scales stress each mass-gradient path on its own
-            # (node masses -> dm2; the base lookup axis -> dxl/dxr/
-            # dinv_d*; min_mass -> the lit ramp).  A single joint scale
-            # is ill-conditioned: the three paths cancel to ~0 by the
-            # interpolation identity, so their float32 residuals would
-            # dominate the comparison.
-            iso2 = dc.replace(iso, mags=mags, mass=s_mass * iso.mass)
-            base2 = dc.replace(
-                base, mags=sec_mags,
-                mass_sorted=s_axis * base.mass_sorted,
-                min_mass=s_mm * base.min_mass,
-            )
-            t = builder(iso2, q, mod, av, coefs, base2)
-            return jnp.sum(t.lo * w_lo) + jnp.sum(jnp.cos(t.hi))
-
-        return f
-
-    f_jnp = functional(
-        lambda i, qq, m, a, c, s: lk.build_segment_table(
-            i, qq, m, a, c, binaries=True, sec_iso=s)
-    )
-    f_pal = functional(
-        lambda i, qq, m, a, c, s: lk.build_segment_table_fused(
-            i, qq, m, a, c, sec_iso=s, interpret=True)
-    )
-    args = (jnp.asarray(9.7), jnp.asarray(0.23), iso.mags, base.mags,
-            jnp.asarray(1.03), jnp.asarray(1.01), jnp.asarray(0.98))
-    want = jax.grad(f_jnp, argnums=(0, 1, 2, 3, 4, 5, 6))(*args)
-    got = jax.grad(f_pal, argnums=(0, 1, 2, 3, 4, 5, 6))(*args)
-    for w, gt, name in zip(want, got,
-                           ["mod", "av", "mags", "sec_mags",
-                            "s_mass", "s_axis", "s_minmass"]):
-        w = np.asarray(w)
-        gt = np.asarray(gt)
-        scale = np.abs(w).max() + 1e-6
-        np.testing.assert_allclose(gt / scale, w / scale, atol=2e-4,
-                                   err_msg=name)
+def test_dispatch_cuda_lowers_triton_kernel():
+    """Lowered for CUDA (no card needed), the same function carries the
+    forward and backward kernels through the Triton route."""
+    text = _lowered_text("cuda")
+    assert text.count("triton") >= 2
+    assert "marglik_fwd" in text and "marglik_bwd" in text

@@ -181,8 +181,12 @@ def test_wd_segment_integral_matches_dense_nodal(wd_dataset):
 
 
 def test_wd_segment_pallas_parity(wd_dataset):
-    """use_pallas routes the WD marginal through the fused kernel
-    (interpret mode on CPU) — same answer as the jnp segment path."""
+    """The WD marginal's concatenated DA+DB segment table through the
+    fused kernel (interpreted on CPU; what a GPU runs) gives the jnp
+    segment path's answer."""
+    from base_tpu.model import likelihood as lk
+    from base_tpu.ops.pallas_marglik import Tiles, fused_log_marginals
+
     model = wd_dataset
     p = jnp.asarray(TRUTH).at[6].set(0.721).at[7].set(0.109)
     mod, av = p[C.Param.MOD], p[C.Param.ABS]
@@ -190,11 +194,18 @@ def test_wd_segment_pallas_parity(wd_dataset):
     mags, _, valid = wd_mod.wd_model_mags(
         model.grid, model.wd_cooling, model.wd_atm, p, mz, "linear"
     )
-    a = np.asarray(wd_mod.wd_star_log_marginals(
-        model.wd_stars, mags, valid, mz, mod, av, model.abs_coefs,
-        model.p_db, use_pallas=False))
-    b = np.asarray(wd_mod.wd_star_log_marginals(
-        model.wd_stars, mags, valid, mz, mod, av, model.abs_coefs,
-        model.p_db, use_pallas=True))
+    table = wd_mod.wd_segment_table(
+        mags, valid, mz, mod, av, model.abs_coefs, model.p_db)
+    st = model.wd_stars
+    a = np.asarray(lk.ms_star_log_marginals(st, table))
+    b = np.asarray(fused_log_marginals(
+        st.obs_mags, st.inv_var, st.log_norm, table.lo, table.hi,
+        table.logw, table.mask.astype(jnp.float32), interpret=True,
+        tiles=Tiles(s=8, t=32)))
     sel = a > -200
     np.testing.assert_allclose(b[sel], a[sel], atol=5e-2)
+    # and the dispatching entry point is the jnp path on the CPU
+    np.testing.assert_array_equal(
+        np.asarray(wd_mod.wd_star_log_marginals(
+            st, mags, valid, mz, mod, av, model.abs_coefs, model.p_db)),
+        np.maximum(a, -1e30))
